@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Smoke run of the torch port (phylonium_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed with its wall time; any failure ends the run with a
+non-zero exit and no result line:
+
+1. describe the card (needs torch.cuda.is_available()), and pick a host
+   C++ compiler with OpenMP for the native host library;
+2. build the CUDA kernels from phylonium_tpu_torch/csrc with nvcc;
+3. hold the pair-count kernel against its plain PyTorch version, bit for
+   bit, at edge shapes (tiny and ragged N, odd L, all-INVALID rows,
+   symmetric and rectangular calls);
+4. the same at the main path's production shapes, 29 x 5 Mbp and
+   600 x 1 Mbp, with the kernel's and the plain version's times;
+5. end to end: an eco29-shaped panel (29 genomes x 5 Mbp) through the
+   port's CLI on the card, whose PHYLIP output must equal, byte for byte,
+   the JAX package's CLI with host counting (a jax-free subprocess).
+
+The last lines are the kernel table as JSON, the card's name and power
+limit as nvidia-smi prints them, and the device JSON.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+KERNEL_SOURCE = "phylonium_tpu_torch/csrc/pair_count.cu"
+# the TPU kernels it replaces: _count_kernel_packed (N <= 512) and
+# _cross_kernel_packed (the N > 512 panels)
+REPLACES = "phylonium_tpu/ops/pallas_match.py:108"
+ALSO_REPLACES = "phylonium_tpu/ops/pallas_match.py:217"
+
+INVALID = 10
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def pick_host_compiler() -> str:
+    """Point $CXX at a C++ compiler that builds OpenMP code.
+
+    The host layer (suffix index, mapping, pileup) is a native library
+    built at first use with ``$CXX -fopenmp``. A machine may export a CXX
+    whose toolchain lacks OpenMP (no libgomp.spec); then the system g++
+    is used instead. Raises when neither compiles an OpenMP program.
+    """
+    tried = []
+    for cxx in dict.fromkeys(filter(None, (os.environ.get("CXX"), "g++"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "omp.cpp")
+            with open(src, "w") as f:
+                f.write("#include <omp.h>\nint main() { return omp_get_max_threads() < 1; }\n")
+            exe = os.path.join(tmp, "omp")
+            try:
+                proc = subprocess.run(
+                    [cxx, "-fopenmp", src, "-o", exe],
+                    capture_output=True, text=True, timeout=120,
+                )
+                if proc.returncode == 0:
+                    proc = subprocess.run(
+                        [exe], capture_output=True, text=True, timeout=60
+                    )
+            except OSError as e:
+                tried.append(f"{cxx}: {e}")
+                continue
+        if proc.returncode == 0:
+            os.environ["CXX"] = cxx
+            return cxx
+        tried.append(f"{cxx}: {proc.stderr.strip()[-300:]}")
+    raise RuntimeError("no C++ compiler builds OpenMP code:\n" + "\n".join(tried))
+
+
+def random_states(rng, n: int, length: int, invalid: float = 0.2):
+    """[n, length] uint8 states 0..9 with about ``invalid`` INVALID."""
+    import numpy as np
+
+    draw = rng.integers(0, 100, size=(n, length), dtype=np.uint8)
+    states = draw % INVALID
+    states[draw < round(100 * invalid)] = INVALID
+    return states
+
+
+def compare(kernel, plain, symmetric: bool) -> int:
+    """Max |kernel - plain| over the defined cells; raises if not 0."""
+    import torch
+
+    diff = (kernel.to(torch.int64) - plain).abs()
+    if symmetric:  # only tiles on or above the diagonal are defined
+        diff = torch.triu(diff)
+    err = int(diff.max().item()) if diff.numel() else 0
+    if err:
+        raise AssertionError(f"kernel disagrees with the plain version: {err}")
+    return err
+
+
+def check_edges(device, seed: int = 7) -> int:
+    """Kernel == plain at ragged shapes; returns the max abs error (0)."""
+    import numpy as np
+    import torch
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+    from phylonium_tpu_torch.ops.states import pack_rows, to_device
+
+    rng = np.random.default_rng(seed)
+    worst = 0
+    # odd lengths; 2001 states pack to 1001 bytes, not a multiple of 16
+    for n, length in [(2, 2001), (29, 2001), (33, 2001), (64, 2001),
+                      (65, 2001), (600, 2001), (29, 300_001), (2, 1)]:
+        states = random_states(rng, n, length)
+        states[n // 2] = INVALID  # one all-INVALID row
+        other = random_states(rng, n + 7, length)
+        a = to_device(pack_rows(states), device)
+        b = to_device(pack_rows(other), device)
+        for x, y, sym in ((a, a, True), (a, b, False), (b, a, False)):
+            m, h = pair_count.cross_counts(x, y, symmetric=sym)
+            mr, hr = cross_counts_reference(x, y)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            worst = max(worst, compare(m, mr, sym), compare(h, hr, sym))
+        print(f"  edge N={n} L={length}: kernel == plain", flush=True)
+    return worst
+
+
+def time_ms(fn, runs: int = 3) -> float:
+    """One warm run, then the median of ``runs`` timed by CUDA events."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_production(device, n: int, length: int, seed: int) -> dict:
+    """Kernel == plain at a production shape, with both times."""
+    import numpy as np
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+    from phylonium_tpu_torch.ops.states import pack_rows, to_device
+
+    import torch
+
+    states = random_states(np.random.default_rng(seed), n, length)
+    t0 = time.perf_counter()
+    packed = pack_rows(states)
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    del states
+    t0 = time.perf_counter()
+    rows = to_device(packed, device)
+    torch.cuda.synchronize()
+    copy_ms = 1e3 * (time.perf_counter() - t0)
+    del packed
+    m, h = pair_count.cross_counts(rows, rows, symmetric=True)
+    mr, hr = cross_counts_reference(rows, rows)
+    err = max(compare(m, mr, True), compare(h, hr, True))
+    del m, h, mr, hr
+    ms = time_ms(lambda: pair_count.cross_counts(rows, rows, symmetric=True))
+    plain_ms = time_ms(lambda: cross_counts_reference(rows, rows))
+    print(
+        f"  production N={n} L={length}: kernel == plain; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms; host pack {pack_ms:.3f} ms, "
+        f"pinned copy to the card {copy_ms:.3f} ms", flush=True,
+    )
+    return {"n": n, "length": length, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err}
+
+
+def eco29_panel(n: int = 29, length: int = 5_000_000, seed: int = 29):
+    """The eco29-shaped panel of bench.py's simulate_panel: a base genome,
+    n-1 substitution mutants at 1%..6%, the last one a draft assembly in
+    5 contigs with a 500 kb inversion. Returns contig lists."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    code = np.zeros(256, np.uint8)
+    code[acgt] = np.arange(4, dtype=np.uint8)
+    ref = rng.choice(acgt, length)
+    genomes = [ref.tobytes()]
+    for k in range(1, n):
+        arr = ref.copy()
+        hit = np.flatnonzero(rng.random(length) < 0.01 + 0.05 * (k - 1) / max(n - 2, 1))
+        arr[hit] = acgt[(code[arr[hit]] + rng.integers(1, 4, hit.size)) % 4]
+        genomes.append(arr.tobytes())
+    draft = bytearray(genomes[-1])
+    third = length // 3
+    inv = min(500_000, length // 6)
+    draft[third : third + inv] = bytes(draft[third : third + inv])[::-1].translate(
+        bytes.maketrans(b"ACGT", b"TGCA")
+    )
+    contig = length // 5
+    out = [[g] for g in genomes[:-1]]
+    out.append([bytes(draft[i * contig : (i + 1) * contig]) for i in range(5)])
+    return out
+
+
+def write_fasta(panel, directory: str) -> list[str]:
+    files = []
+    for k, contigs in enumerate(panel):
+        path = os.path.join(directory, f"S{k:03d}.fasta")
+        with open(path, "wb") as f:
+            for ci, contig in enumerate(contigs):
+                f.write(b">S%03d_c%d\n" % (k, ci))
+                f.write(b"\n".join(contig[i : i + 80] for i in range(0, len(contig), 80)))
+                f.write(b"\n")
+        files.append(path)
+    return files
+
+
+def run_port_cli(args: list[str]) -> tuple[int, str]:
+    from phylonium_tpu_torch.cli import main as port_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = port_main(args)
+    return rc, buf.getvalue()
+
+
+def run_reference_cli(args: list[str], cwd: str) -> bytes:
+    """The JAX package's CLI with host counting, in a subprocess that
+    fails if it loads jax."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["PHYLONIUM_TPU_EXPECT_NO_JAX"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-m", "phylonium_tpu", "--count-backend", "host", *args],
+        capture_output=True, cwd=cwd, env=env, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"reference CLI exited {proc.returncode}: {proc.stderr.decode()[-2000:]}"
+        )
+    return proc.stdout
+
+
+def check_phylip(text: str, n: int) -> None:
+    import math
+
+    lines = text.splitlines()
+    if int(lines[0]) != n or len(lines) != n + 1:
+        raise AssertionError(f"expected a {n}-row PHYLIP matrix")
+    for line in lines[1:]:
+        cells = [float(v) for v in line.split()[1:]]
+        if len(cells) != n or not all(math.isfinite(v) for v in cells):
+            raise AssertionError(f"bad PHYLIP row: {line[:200]}")
+
+
+def end_to_end(device_name: str, n: int = 29, length: int = 5_000_000) -> dict:
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+    from phylonium_tpu_torch.ops import pair_count
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        files = write_fasta(eco29_panel(n, length), tmp)
+        args = ["--progress=never", "--device", device_name, *files]
+        pair_count.KERNEL_LAUNCHES = 0
+        pair_count.PLAIN_CALLS = 0
+        t0 = time.perf_counter()
+        rc, ours = run_port_cli(args)
+        wall = time.perf_counter() - t0
+        launches = pair_count.KERNEL_LAUNCHES
+        info = dict(LAST_RUN_INFO)
+        if rc != 0:
+            raise RuntimeError(f"port CLI exited {rc}")
+        check_phylip(ours, n)
+        t0 = time.perf_counter()
+        reference = run_reference_cli(["--progress=never", *files], tmp)
+        ref_wall = time.perf_counter() - t0
+    if ours.encode() != reference:
+        raise AssertionError("port output differs from the JAX package's")
+    if "jax" in sys.modules:
+        raise AssertionError("the port's run imported jax")
+    timings = info["timings"]
+    print(
+        f"  e2e {n} x {length}: byte-identical to the JAX package's host "
+        f"count; carrier {info['compare_carrier']}, {launches} kernel "
+        f"launches, wall {wall:.3f} s (reference CLI {ref_wall:.3f} s), "
+        f"phases {json.dumps(timings)}", flush=True,
+    )
+    return {"launches": launches, "carrier": info["compare_carrier"],
+            "plain_calls": pair_count.PLAIN_CALLS}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 2
+
+    from phylonium_tpu_torch.ops import _build
+    from phylonium_tpu_torch.utils.platform import describe_device, resolve_device
+
+    with phase("device"):
+        device = resolve_device("cuda")
+        info = describe_device(device)
+        print(f"  {json.dumps(info)}", flush=True)
+        if not info["nvidia_smi"]:
+            raise RuntimeError("nvidia-smi gave no name and power limit")
+
+    with phase("host compiler"):
+        print(f"  CXX={pick_host_compiler()}", flush=True)
+
+    with phase("build"):
+        _build.load()
+        print(f"  built {_build.BUILD_INFO['path']} in "
+              f"{_build.BUILD_INFO['seconds']:.3f} s", flush=True)
+        for line in _build.BUILD_INFO["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}", flush=True)
+
+    with phase("edge shapes"):
+        worst = check_edges(device)
+
+    with phase("production shapes"):
+        eco = check_production(device, 29, 5_000_000, seed=1)
+        wide = check_production(device, 600, 1_000_000, seed=2)
+        torch.cuda.empty_cache()
+    worst = max(worst, eco["max_abs_err"], wide["max_abs_err"])
+
+    with phase("end to end"):
+        e2e = end_to_end("cuda")
+    if e2e["launches"] < 1 or e2e["carrier"] != "cuda-kernel":
+        raise AssertionError("the main path did not launch the pair-count kernel")
+
+    print(json.dumps({"kernels": [{
+        "name": "pair_count",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "also_replaces": ALSO_REPLACES,
+        "launches": e2e["launches"],
+        "max_abs_err": worst,
+        "ms": eco["ms"],
+        "plain_ms": eco["plain_ms"],
+        "shape": "29 x 5000000",
+        "ms_600x1000000": wide["ms"],
+        "plain_ms_600x1000000": wide["plain_ms"],
+        "build_s": _build.BUILD_INFO["seconds"],
+    }]}), flush=True)
+    print(info["nvidia_smi"].splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""All-pairs counting: the wrappers around the pair-count kernel.
+
+These port the JAX package's ``pair_counts_pallas``,
+``pair_counts_pallas_blocked``, ``blocked_counts_device`` and
+``cross_counts_pallas`` (phylonium_tpu/ops/pallas_match.py). On the TPU
+the square block (N <= 512) and the 512-row panels (N > 512) were two
+kernels because of VMEM; the CUDA kernel (csrc/pair_count.cu) tiles its
+output into 64 x 64 blocks, so its shared memory does not grow with N and
+one symmetric launch serves every N.
+
+A CUDA tensor goes to the kernel; a CPU tensor goes to the plain PyTorch
+version (ops/match_matrix.py). The route follows the tensor's device and
+nothing else: a kernel that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from phylonium_tpu_torch.ops import _build
+from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+from phylonium_tpu_torch.ops.match_table import PARTNER_MASK
+from phylonium_tpu_torch.ops.states import ROW_ALIGN, pack_rows, to_device
+
+# launches of the CUDA kernel, and calls of the plain version on the CPU
+# route, since the last reset (callers set them to 0)
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+# int32 cells: a cell counts at most 2 states per packed byte
+_MAX_WIDTH = (1 << 31) // 2
+
+# devices whose constant memory holds PARTNER_MASK
+_masks_on: set[int] = set()
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, symmetric: bool) -> None:
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.uint8 or t.dim() != 2:
+            raise ValueError(
+                f"{name} must be a 2-D uint8 tensor of packed rows, got "
+                f"{t.dtype} with shape {tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (row-major)")
+        if t.data_ptr() % ROW_ALIGN:
+            raise ValueError(f"{name} must start on a {ROW_ALIGN}-byte boundary")
+    if a.device != b.device:
+        raise ValueError(f"a is on {a.device} but b is on {b.device}")
+    width = a.shape[1]
+    if b.shape[1] != width:
+        raise ValueError(f"row widths differ: {width} and {b.shape[1]}")
+    if width % ROW_ALIGN:
+        raise ValueError(
+            f"row width {width} is not a multiple of {ROW_ALIGN} bytes "
+            "(pack with ops.states.pack_rows)"
+        )
+    if width >= _MAX_WIDTH:
+        raise ValueError(
+            f"row width {width} bytes holds 2^31 or more states: int32 "
+            "cells could overflow"
+        )
+    if symmetric and (a.data_ptr() != b.data_ptr() or a.shape != b.shape):
+        raise ValueError("symmetric counting needs a and b to be one tensor")
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, symmetric: bool):
+    lib = _build.load()
+    device = a.device
+    with torch.cuda.device(device):
+        if device.index not in _masks_on:
+            err = lib.pt_set_partner_mask(PARTNER_MASK.ctypes.data)
+            if err:
+                raise RuntimeError(f"pt_set_partner_mask: CUDA error {err}")
+            _masks_on.add(device.index)
+        na, nb = a.shape[0], b.shape[0]
+        matches = torch.zeros((na, nb), dtype=torch.int32, device=device)
+        homs = torch.zeros((na, nb), dtype=torch.int32, device=device)
+        err = lib.pt_cross_counts(
+            a.data_ptr(), a.stride(0), na,
+            b.data_ptr(), b.stride(0), nb,
+            a.shape[1],
+            matches.data_ptr(), homs.data_ptr(),
+            int(symmetric), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"pt_cross_counts: CUDA error {err}")
+    return matches, homs
+
+
+def cross_counts(
+    a: torch.Tensor, b: torch.Tensor, *, symmetric: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """[Na, W] x [Nb, W] packed uint8 -> (matches, homs) int32 [Na, Nb].
+
+    ``symmetric=True`` (a is b) lets the kernel skip the output tiles
+    below the diagonal: only cells with i <= j are then defined. The CPU
+    route computes every cell either way.
+    """
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    _check(a, b, symmetric)
+    if a.device.type == "cuda":
+        matches, homs = _launch(a, b, symmetric)
+        KERNEL_LAUNCHES += 1
+        return matches, homs
+    if a.device.type != "cpu":
+        raise ValueError(f"no pair-count route for device {a.device}")
+    matches, homs = cross_counts_reference(a, b)
+    PLAIN_CALLS += 1
+    return matches.to(torch.int32), homs.to(torch.int32)
+
+
+def _mirror_upper(m: np.ndarray) -> np.ndarray:
+    upper = np.triu(m, 1)
+    return upper + upper.T
+
+
+def pair_counts(
+    states: np.ndarray, device: torch.device
+) -> tuple[np.ndarray, np.ndarray]:
+    """All-pairs (substitutions, homologs) of an [N, L] uint8 pileup.
+
+    One symmetric count on ``device`` for any N; the upper triangle is
+    mirrored and the diagonal zeroed (the reference never compares a
+    genome with itself). Returns int64 numpy arrays.
+    """
+    rows = to_device(pack_rows(states), device)
+    matches, homs = cross_counts(rows, rows, symmetric=True)
+    matches = _mirror_upper(matches.cpu().numpy().astype(np.int64))
+    homs = _mirror_upper(homs.cpu().numpy().astype(np.int64))
+    return homs - matches, homs

@@ -1,0 +1,61 @@
+"""The CUDA pair-count kernel against its plain PyTorch version, on a card.
+
+Skips without a CUDA device. Imports nothing of jax, so it runs on a
+machine with a card and no jax:
+
+    PHYLONIUM_TPU_TEST_REAL=1 python -m pytest -m cuda tests/test_torch_kernel_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from phylonium_tpu.ops.match_table import pair_counts_numpy
+from phylonium_tpu_torch.ops import pair_count
+from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+from phylonium_tpu_torch.ops.states import pack_rows, to_device
+
+INVALID = 10
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+def _states(seed, n, length, invalid_row=None):
+    rng = np.random.default_rng(seed)
+    states = rng.integers(0, 11, size=(n, length)).astype(np.uint8)
+    if invalid_row is not None:
+        states[invalid_row] = INVALID
+    return states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "na,nb,length", [(2, 2, 1), (65, 65, 2001), (29, 36, 30_001), (130, 7, 999)]
+)
+def test_kernel_equals_plain(card, na, nb, length):
+    a = to_device(pack_rows(_states(na, na, length, 0)), card)
+    b = to_device(pack_rows(_states(nb + 50, nb, length)), card)
+    launches = pair_count.KERNEL_LAUNCHES
+    cases = [(a, b, False), (b, a, False)]
+    if na == nb:
+        cases.append((a, a, True))
+    for x, y, sym in cases:
+        m, h = pair_count.cross_counts(x, y, symmetric=sym)
+        mr, hr = cross_counts_reference(x, y)
+        keep = torch.triu if sym else (lambda t: t)
+        assert torch.equal(keep(m.to(torch.int64)), keep(mr))
+        assert torch.equal(keep(h.to(torch.int64)), keep(hr))
+    assert pair_count.KERNEL_LAUNCHES == launches + len(cases)
+
+
+@pytest.mark.cuda
+def test_pair_counts_on_card_equal_numpy(card):
+    states = _states(3, 9, 7001, invalid_row=4)
+    got = pair_count.pair_counts(states, card)
+    want = pair_counts_numpy(states)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
