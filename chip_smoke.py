@@ -14,9 +14,20 @@ non-zero exit and no result line:
    symmetric and rectangular calls);
 4. the same at the main path's production shapes, 29 x 5 Mbp and
    600 x 1 Mbp, with the kernel's and the plain version's times;
-5. end to end: an eco29-shaped panel (29 genomes x 5 Mbp) through the
+5. hold the diagonal-mismatch kernel against its plain PyTorch version,
+   word for word, at edge shapes (lengths 1 to 2^19, unaligned offsets
+   and offsets at the text end, a limit of 0, 1 and 300 jobs, identical
+   texts);
+6. the same at its production shapes, 128 jobs x 2^19 over a 5 Mbp
+   genome's doubled text and 8 jobs x 2^19 of a hybrid round, with both
+   times;
+7. end to end: an eco29-shaped panel (29 genomes x 5 Mbp) through the
    port's CLI on the card, whose PHYLIP output must equal, byte for byte,
-   the JAX package's CLI with host counting (a jax-free subprocess).
+   the JAX package's CLI with host counting (a jax-free subprocess);
+8. end to end with hybrid mapping: an outbreak-shaped panel (8 genomes x
+   5 Mbp at 0.2-2 %) through the port's CLI with ``--map-backend hybrid``
+   on the card, byte for byte against the same reference CLI (native
+   mapping, host counting).
 
 The last lines are the kernel table as JSON, the card's name and power
 limit as nvidia-smi prints them, and the device JSON.
@@ -41,6 +52,12 @@ KERNEL_SOURCE = "phylonium_tpu_torch/csrc/pair_count.cu"
 # _cross_kernel_packed (the N > 512 panels)
 REPLACES = "phylonium_tpu/ops/pallas_match.py:108"
 ALSO_REPLACES = "phylonium_tpu/ops/pallas_match.py:217"
+
+EXTEND_SOURCE = "phylonium_tpu_torch/csrc/diagonal_neq.cu"
+# the Pallas kernel's body, and the XLA op the JAX hybrid mapper calls
+EXTEND_REPLACES = "phylonium_tpu/ops/anchor_extend_pallas.py:46"
+EXTEND_ALSO_REPLACES = "phylonium_tpu/ops/anchor_extend.py:114"
+CHUNK = 1 << 19  # the hybrid mapper's request length (DEFAULT_CHUNK)
 
 INVALID = 10
 
@@ -138,8 +155,9 @@ def check_edges(device, seed: int = 7) -> int:
     return worst
 
 
-def time_ms(fn, runs: int = 3) -> float:
-    """One warm run, then the median of ``runs`` timed by CUDA events."""
+def time_ms(fn, runs: int = 3, reps: int = 1) -> float:
+    """One warm run, then the median of ``runs`` timed by CUDA events,
+    each over ``reps`` calls back to back; returns ms per call."""
     import torch
 
     fn()
@@ -148,10 +166,11 @@ def time_ms(fn, runs: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -190,10 +209,145 @@ def check_production(device, n: int, length: int, seed: int) -> dict:
             "max_abs_err": err}
 
 
-def eco29_panel(n: int = 29, length: int = 5_000_000, seed: int = 29):
+def extend_compare(a, b, off_a, off_b, lim_a, lim_b, length: int) -> int:
+    """Max |kernel bit - plain bit| of one call; raises if not 0."""
+    import numpy as np
+    import torch
+
+    from phylonium_tpu_torch.ops import anchor_extend
+
+    kernel = anchor_extend.diagonal_neq(a, b, off_a, off_b, lim_a, lim_b, length)
+    plain = anchor_extend.diagonal_neq_bits_reference(
+        a, b, off_a, off_b, lim_a, lim_b, length
+    )
+    torch.cuda.synchronize()
+    if kernel.shape != plain.shape:
+        raise AssertionError(
+            f"diagonal_neq kernel gave {tuple(kernel.shape)} words, the "
+            f"plain version {tuple(plain.shape)}"
+        )
+    diff = np.unpackbits((kernel ^ plain).cpu().numpy().view(np.uint8))
+    err = int(diff.max()) if diff.size else 0
+    if err:
+        raise AssertionError(
+            f"diagonal_neq kernel disagrees with the plain version: "
+            f"{int(diff.sum())} bits differ, length {length}, "
+            f"{len(off_a)} jobs"
+        )
+    return err
+
+
+def random_text(rng, n: int):
+    import numpy as np
+
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+
+
+def mutate_text(rng, text, p: float):
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = text.copy()
+    hit = np.flatnonzero(rng.random(text.size) < p)
+    out[hit] = acgt[(np.searchsorted(acgt, out[hit]) + rng.integers(1, 4, hit.size)) % 4]
+    return out
+
+
+def check_extend_edges(device, seed: int = 11) -> int:
+    """diagonal_neq kernel == plain at ragged shapes; returns 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a_host = random_text(rng, 1_200_001)
+    b_host = mutate_text(rng, a_host, 0.03)[:1_000_003]
+    a = torch.from_numpy(a_host).to(device)
+    b = torch.from_numpy(b_host).to(device)
+    na, nb = a.numel(), b.numel()
+    worst = 0
+    for length in (1, 31, 32, 33, 900, CHUNK):
+        for jobs in (1, 300):
+            off_a = rng.integers(0, na + 1, jobs)
+            off_b = rng.integers(0, nb + 1, jobs)
+            off_a[0], off_b[-1] = na, nb  # at the text end
+            off_a[jobs // 3] = na - 5     # near it, unaligned
+            lim_a = np.full(jobs, na)
+            lim_a[jobs // 2] = 0          # a limit of 0
+            lim_b = rng.integers(0, nb + 1, jobs)
+            worst = max(worst, extend_compare(a, b, off_a, off_b, lim_a, lim_b, length))
+        print(f"  extend edge length={length}, 1 and 300 jobs: kernel == plain",
+              flush=True)
+    # identical texts: mismatch exactly from the limit on
+    from phylonium_tpu_torch.ops import anchor_extend
+
+    off = np.array([0, 999_000, na - 1, na, 12_345, 7])
+    worst = max(worst, extend_compare(a, a, off, off, na, na, 4096))
+    bits = anchor_extend.unpack_bits(
+        anchor_extend.diagonal_neq(a, a, off, off, na, na, 4096), 4096
+    )
+    for row, o in zip(bits, off):
+        inside = min(max(na - int(o), 0), 4096)
+        if row[:inside].any() or not row[inside:].all():
+            raise AssertionError(f"identical texts: wrong bits at offset {o}")
+    print("  extend edge identical texts: mismatch exactly from the limit",
+          flush=True)
+    return worst
+
+
+def check_extend_production(device, seed: int = 12) -> dict:
+    """diagonal_neq kernel == plain at its two production shapes, with
+    both times: the anchor-extension micro's (128 jobs over a 5 Mbp
+    genome's doubled text) and a hybrid round's (8 queries of 5 Mbp)."""
+    import numpy as np
+    import torch
+
+    from phylonium_tpu.data.sequence import revcomp
+    from phylonium_tpu_torch.ops import anchor_extend
+
+    rng = np.random.default_rng(seed)
+    genome = random_text(rng, 5_000_000)
+    doubled = np.frombuffer(
+        genome.tobytes() + b"#" + revcomp(genome.tobytes()), np.uint8
+    ).copy()
+    a = torch.from_numpy(doubled).to(device)
+    out = {}
+    # the micro: 128 jobs x 2^19 at linspace offsets (bench.py:736-740),
+    # here against a 1%-mutated copy so the bits are not all 0
+    b = torch.from_numpy(mutate_text(rng, doubled, 0.01)).to(device)
+    off = np.linspace(0, doubled.size - CHUNK - 1, 128).astype(np.int64)
+    shapes = {"micro": (a, b, off, off, doubled.size, doubled.size)}
+    # a hybrid round: 8 queries of 5 Mbp, one request each
+    queries = np.concatenate([mutate_text(rng, genome, 0.002 + 0.0025 * k) for k in range(8)])
+    q = torch.from_numpy(queries).to(device)
+    bases = np.arange(8, dtype=np.int64) * genome.size
+    start = rng.integers(0, genome.size - CHUNK, 8)
+    diag = rng.integers(-1000, 1000, 8)
+    shapes["hybrid"] = (a, q, np.clip(diag + start, 0, None), bases + start,
+                        doubled.size, bases + genome.size)
+    for name, (x, y, oa, ob, la, lb) in shapes.items():
+        err = extend_compare(x, y, oa, ob, la, lb, CHUNK)
+        # time the launch and the plain computation alone: the wrapper's
+        # host checks and the jobs' copy to the card stay outside
+        jobs_dev = anchor_extend._job_tensor(x, y, oa, ob, la, lb)
+        ms = time_ms(lambda: anchor_extend._launch(x, y, jobs_dev, CHUNK), reps=20)
+        plain_ms = time_ms(lambda: anchor_extend._plain(x, y, jobs_dev, CHUNK), reps=5)
+        jobs = len(oa)
+        gbp_s = jobs * CHUNK / (ms * 1e-3) / 1e9
+        print(f"  extend production {name} {jobs} x {CHUNK}: kernel == plain; "
+              f"kernel {ms:.4f} ms ({gbp_s:.1f} Gbp/s, "
+              f"{2 * jobs * CHUNK / (ms * 1e-3) / 1e9:.1f} GB/s of text read), "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        out[name] = {"jobs": jobs, "ms": ms, "plain_ms": plain_ms,
+                     "gbp_s": gbp_s, "max_abs_err": err}
+    return out
+
+
+def eco29_panel(n: int = 29, length: int = 5_000_000, seed: int = 29,
+                low: float = 0.01, span: float = 0.05):
     """The eco29-shaped panel of bench.py's simulate_panel: a base genome,
-    n-1 substitution mutants at 1%..6%, the last one a draft assembly in
-    5 contigs with a 500 kb inversion. Returns contig lists."""
+    n-1 substitution mutants at ``low``..``low + span`` (1%..6%), the last
+    one a draft assembly in 5 contigs with a 500 kb inversion. Returns
+    contig lists."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -204,7 +358,7 @@ def eco29_panel(n: int = 29, length: int = 5_000_000, seed: int = 29):
     genomes = [ref.tobytes()]
     for k in range(1, n):
         arr = ref.copy()
-        hit = np.flatnonzero(rng.random(length) < 0.01 + 0.05 * (k - 1) / max(n - 2, 1))
+        hit = np.flatnonzero(rng.random(length) < low + span * (k - 1) / max(n - 2, 1))
         arr[hit] = acgt[(code[arr[hit]] + rng.integers(1, 4, hit.size)) % 4]
         genomes.append(arr.tobytes())
     draft = bytearray(genomes[-1])
@@ -305,6 +459,58 @@ def end_to_end(device_name: str, n: int = 29, length: int = 5_000_000) -> dict:
             "plain_calls": pair_count.PLAIN_CALLS}
 
 
+def end_to_end_hybrid(device_name: str, n: int = 8, length: int = 5_000_000) -> dict:
+    """An outbreak-shaped panel through the port's CLI with hybrid mapping
+    on the card, byte for byte against the reference CLI."""
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+    from phylonium_tpu_torch.ops import anchor_extend, pair_count
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmp:
+        panel = eco29_panel(n, length, seed=8, low=0.002, span=0.018)
+        files = write_fasta(panel, tmp)
+        args = ["--progress=never", "--map-backend", "hybrid",
+                "--device", device_name, *files]
+        anchor_extend.KERNEL_LAUNCHES = 0
+        anchor_extend.PLAIN_CALLS = 0
+        pair_count.KERNEL_LAUNCHES = 0
+        pair_count.PLAIN_CALLS = 0
+        t0 = time.perf_counter()
+        rc, ours = run_port_cli(args)
+        wall = time.perf_counter() - t0
+        launches = anchor_extend.KERNEL_LAUNCHES
+        plain = anchor_extend.PLAIN_CALLS
+        info = dict(LAST_RUN_INFO)
+        if rc != 0:
+            raise RuntimeError(f"port CLI exited {rc}")
+        check_phylip(ours, n)
+        t0 = time.perf_counter()
+        reference = run_reference_cli(["--progress=never", *files], tmp)
+        ref_wall = time.perf_counter() - t0
+    if ours.encode() != reference:
+        raise AssertionError("hybrid output differs from the JAX package's")
+    if "jax" in sys.modules:
+        raise AssertionError("the port's hybrid run imported jax")
+    if info["map_carrier"] != "cuda-kernel":
+        raise AssertionError(f"mapping carried by {info['map_carrier']}")
+    if launches < 1 or info["extend_kernel_launches"] != launches:
+        raise AssertionError("hybrid mapping launched no diagonal_neq kernel")
+    if plain or info["extend_plain_calls"]:
+        raise AssertionError("hybrid mapping called the plain version")
+    if pair_count.KERNEL_LAUNCHES < 1 or pair_count.PLAIN_CALLS:
+        raise AssertionError("the hybrid run did not count on the kernel")
+    timings = info["timings"]
+    print(
+        f"  hybrid e2e {n} x {length}: byte-identical to the JAX package's "
+        f"native-mapped host count; map carrier {info['map_carrier']}, "
+        f"{launches} extend launches in {info['map_rounds']} rounds, "
+        f"{pair_count.KERNEL_LAUNCHES} pair-count launches, wall {wall:.3f} s "
+        f"(reference CLI {ref_wall:.3f} s), phases {json.dumps(timings)}",
+        flush=True,
+    )
+    return {"launches": launches, "rounds": info["map_rounds"],
+            "timings": timings, "wall": wall}
+
+
 def main() -> int:
     import torch
 
@@ -342,10 +548,21 @@ def main() -> int:
         torch.cuda.empty_cache()
     worst = max(worst, eco["max_abs_err"], wide["max_abs_err"])
 
+    with phase("extend edge shapes"):
+        extend_worst = check_extend_edges(device)
+
+    with phase("extend production shapes"):
+        ext = check_extend_production(device)
+        torch.cuda.empty_cache()
+    extend_worst = max([extend_worst] + [v["max_abs_err"] for v in ext.values()])
+
     with phase("end to end"):
         e2e = end_to_end("cuda")
     if e2e["launches"] < 1 or e2e["carrier"] != "cuda-kernel":
         raise AssertionError("the main path did not launch the pair-count kernel")
+
+    with phase("hybrid end to end"):
+        hybrid = end_to_end_hybrid("cuda")
 
     print(json.dumps({"kernels": [{
         "name": "pair_count",
@@ -360,6 +577,21 @@ def main() -> int:
         "shape": "29 x 5000000",
         "ms_600x1000000": wide["ms"],
         "plain_ms_600x1000000": wide["plain_ms"],
+        "build_s": _build.BUILD_INFO["seconds"],
+    }, {
+        "name": "diagonal_neq",
+        "route": "cuda",
+        "source": EXTEND_SOURCE,
+        "replaces": EXTEND_REPLACES,
+        "also_replaces": EXTEND_ALSO_REPLACES,
+        "launches": hybrid["launches"],
+        "max_abs_err": extend_worst,
+        "ms": ext["micro"]["ms"],
+        "plain_ms": ext["micro"]["plain_ms"],
+        "shape": f"128 x {CHUNK}",
+        "gbp_s": ext["micro"]["gbp_s"],
+        f"ms_8x{CHUNK}": ext["hybrid"]["ms"],
+        f"plain_ms_8x{CHUNK}": ext["hybrid"]["plain_ms"],
         "build_s": _build.BUILD_INFO["seconds"],
     }]}), flush=True)
     print(info["nvidia_smi"].splitlines()[0], flush=True)

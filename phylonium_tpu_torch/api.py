@@ -6,7 +6,10 @@
     result.distances        # [N, N] float64 (jc by default)
 
 It mirrors ``phylonium_tpu.api.distance_matrix`` and returns the same
-``DistanceResult``; the pair count runs on ``device``.
+``DistanceResult``; the pair count runs on ``device``. Like the JAX
+API it maps with the default backend (native C++ on the host): hybrid
+mapping, whose bitmaps also run on the device, is the CLI's
+``--map-backend hybrid``.
 """
 
 from __future__ import annotations

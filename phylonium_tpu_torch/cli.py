@@ -2,7 +2,7 @@
 
 The flags are the JAX package's (phylonium_tpu/cli.py, parsed by its
 ``parse_args``) plus ``--device``, which names the torch device of the
-pair count. The run is the JAX CLI's one-shot path: read the FASTA files,
+pair count and of hybrid mapping's diagonal bitmaps. The run is the JAX CLI's one-shot path: read the FASTA files,
 pick the reference, run the pipeline (twice with ``-2``), print PHYLIP.
 """
 
@@ -29,7 +29,8 @@ USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
 \tEach FASTA file is one genome (multi-contig files are fine).
 
 Options:
-      --device=DEV     Count all pairs on DEV: 'cuda' (default) or 'cpu'
+      --device=DEV     Count all pairs, and extend hybrid-mapping anchors,
+                       on DEV: 'cuda' (default) or 'cpu'
   -2, --2pass          Rerun with the most central genome as reference
   -b, --bootstrap=N    Also print N-1 bootstrapped distance matrices
   --complete-deletion  Keep only reference columns covered in every genome
@@ -43,7 +44,8 @@ Options:
       --esa-backend=B  Suffix index: 'native', 'numpy', or 'auto' (default)
       --count-backend=B  Pair counting: 'auto', 'device' or 'pallas' (all
                        on --device), 'host' or 'numpy' (host counters)
-      --map-backend=B  Mapping: 'native', 'python', or 'auto' (default)
+      --map-backend=B  Mapping: 'native', 'python', 'hybrid' (host chain,
+                       anchor extension on --device), or 'auto' (default)
       --checkpoint=DIR Reuse/persist anchor-mapping results in DIR
   -h, --help           This text
       --version        Version information
@@ -112,7 +114,8 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         refuse_unported(cfg)
-        if cfg.count_backend not in ("numpy", "host"):
+        if (cfg.count_backend not in ("numpy", "host")
+                or cfg.map_backend == "hybrid"):
             resolve_device(cfg.device)  # fail before any work
     except ConfigError as e:
         print(f"{PROG}: {e}", file=sys.stderr)

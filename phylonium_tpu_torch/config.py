@@ -2,7 +2,7 @@
 
 The flags, their defaults and their soft-error semantics are the JAX
 package's ``RunConfig`` (phylonium_tpu/config.py); the port adds the torch
-device it counts on.
+device it counts on and computes hybrid mapping's bitmaps on.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ PROG = "phylonium-tpu-torch"
 
 @dataclass
 class TorchRunConfig(RunConfig):
-    device: str = "cuda"  # torch device of the pair count: 'cuda' | 'cpu'
+    # torch device of the pair count and the hybrid bitmaps: 'cuda' | 'cpu'
+    device: str = "cuda"
 
     @classmethod
     def from_run_config(cls, cfg: RunConfig, **changes) -> "TorchRunConfig":

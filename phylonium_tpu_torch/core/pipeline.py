@@ -2,14 +2,17 @@
 
 It follows the JAX package's ``process`` (phylonium_tpu/core/pipeline.py)
 on its one-shot path and imports every host step from there: the suffix
-index, anchor mapping, complete deletion, the pileup build and the
-``-p`` position file are jax-free host code (C++ in ``native/`` and
-numpy). Only the all-pairs count differs: it runs once, on the torch
-device the configuration names, through ops/pair_count.py.
+index, the native and Python mappers, complete deletion, the pileup build
+and the ``-p`` position file are jax-free host code (C++ in ``native/``
+and numpy). Two steps differ: hybrid mapping (``--map-backend hybrid``)
+computes its diagonal bitmaps on the torch device the configuration
+names, through core/hybrid_map.py, and the all-pairs count runs once on
+that device, through ops/pair_count.py.
 
 Not carried here: the streamed feeder, low-memory mode, pod and mesh
-runs, kernel prewarm, link calibration, and the host race. Options that
-would reach the JAX package's device code are refused.
+runs (and with them the multi-host mapping split), kernel prewarm, link
+calibration, and the host race. Options that would reach the JAX
+package's device code are refused.
 """
 
 from __future__ import annotations
@@ -21,21 +24,25 @@ import numpy as np
 
 from phylonium_tpu.core.anchor_stats import min_anchor_length
 from phylonium_tpu.core.complete_deletion import complete_delete
+from phylonium_tpu.core.filter import filter_overlaps_max
+from phylonium_tpu.core.homology import Homology
 from phylonium_tpu.core.pileup import build_pileup
-from phylonium_tpu.core.pipeline import map_queries
+from phylonium_tpu.core.pipeline import map_queries as host_map_queries
 from phylonium_tpu.core.segsites import write_refpos
 from phylonium_tpu.data.sequence import Sequence, gc_content
 from phylonium_tpu.index.esa import ESAIndex
 from phylonium_tpu.model.evo import EvoCounts
 from phylonium_tpu.utils.progress import ProgressBar
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
-from phylonium_tpu_torch.ops import pair_count
+from phylonium_tpu_torch.core.hybrid_map import hybrid_map_queries
+from phylonium_tpu_torch.ops import anchor_extend, pair_count
 from phylonium_tpu_torch.utils.platform import resolve_device
 
-# What the most recent process() run did: which carrier produced the pair
-# counts ("cuda-kernel", "torch-cpu", "host" or "numpy"), the phase
-# timings in seconds, and the kernel launches and plain-version calls it
-# made.
+# What the most recent process() run did: which carrier mapped the
+# queries ("cuda-kernel", "torch-cpu", "native" or "python") and which
+# produced the pair counts ("cuda-kernel", "torch-cpu", "host" or
+# "numpy"), the phase timings in seconds, the kernel launches and
+# plain-version calls of both, and the hybrid mapper's device rounds.
 LAST_RUN_INFO: dict = {}
 
 
@@ -43,12 +50,80 @@ def refuse_unported(cfg: TorchRunConfig) -> None:
     """Raise ConfigError for options that reach JAX device code."""
     if cfg.mesh:
         raise ConfigError("--mesh is not supported by the torch port yet")
-    if cfg.map_backend == "hybrid":
-        raise ConfigError(
-            "--map-backend hybrid is not supported by the torch port yet"
-        )
     if cfg.profile_dir:
         raise ConfigError("--profile is not supported by the torch port yet")
+
+
+def map_queries(
+    ref: ESAIndex, threshold: int, queries: list[Sequence], cfg: TorchRunConfig
+) -> list[list[Homology]]:
+    """Anchor-map every query against the index ("Mapping" phase).
+
+    ``--map-backend hybrid`` follows the JAX package's ``map_queries``
+    (phylonium_tpu/core/pipeline.py:52-203): checkpoint reuse and save,
+    the progress bar, then sort by start and the max-chain overlap
+    filter; its bitmaps are computed on ``cfg.device``. A failure there
+    raises: nothing maps on the host in its place. Every other backend is
+    the JAX package's host mapper.
+    """
+    if cfg.map_backend != "hybrid":
+        native = cfg.map_backend == "native" or (
+            cfg.map_backend == "auto" and ref.backend_name == "native"
+        )
+        LAST_RUN_INFO["map_carrier"] = "native" if native else "python"
+        LAST_RUN_INFO["map_rounds"] = 0
+        return host_map_queries(ref, threshold, queries, cfg)
+
+    device = resolve_device(cfg.device)
+    LAST_RUN_INFO["map_carrier"] = (
+        "cuda-kernel" if device.type == "cuda" else "torch-cpu"
+    )
+    n = len(queries)
+    homologies: list[list[Homology]] = [None] * n  # type: ignore
+    bar = ProgressBar(
+        f"Mapping {n} sequences", n, enabled=cfg.progress_enabled
+    )
+    ckpt = None
+    keys = [None] * n
+    todo = list(range(n))
+    if cfg.checkpoint_dir:
+        from phylonium_tpu.utils.checkpoint import (
+            MappingCheckpoint,
+            query_key,
+            subject_key,
+        )
+
+        ckpt = MappingCheckpoint(cfg.checkpoint_dir)
+        skey = subject_key(ref.subject.nucl, threshold)
+        todo = []
+        for j in range(n):
+            keys[j] = query_key(skey, queries[j].name, queries[j].nucl)
+            cached = ckpt.load(keys[j])
+            if cached is None:
+                todo.append(j)
+            else:
+                homologies[j] = cached
+    done_base = n - len(todo)
+    bar.update(done_base)
+
+    stats: dict = {}
+    raw = hybrid_map_queries(
+        ref, threshold, [queries[j].as_array() for j in todo], device,
+        progress=lambda d: bar.update(done_base + d), stats=stats,
+    )
+    LAST_RUN_INFO["map_rounds"] = stats["rounds"]
+    LAST_RUN_INFO["map_split"] = {
+        "map_host": stats["host_s"], "map_device": stats["device_s"]
+    }
+    for k, j in enumerate(todo):
+        hv = raw[k]
+        hv.sort(key=lambda h: h.start())
+        homologies[j] = filter_overlaps_max(hv)
+    if ckpt is not None:
+        for j in todo:
+            ckpt.save(keys[j], homologies[j])
+    bar.finish()
+    return homologies
 
 
 def pair_counts(
@@ -84,6 +159,8 @@ def process(
     LAST_RUN_INFO.clear()
     launches0 = pair_count.KERNEL_LAUNCHES
     plain0 = pair_count.PLAIN_CALLS
+    extend0 = anchor_extend.KERNEL_LAUNCHES
+    extend_plain0 = anchor_extend.PLAIN_CALLS
     timings: dict[str, float] = {}
     n = len(queries)
 
@@ -99,6 +176,7 @@ def process(
     t0 = time.perf_counter()
     homologies = map_queries(ref, threshold, queries, cfg)
     timings["map"] = time.perf_counter() - t0
+    timings.update(LAST_RUN_INFO.pop("map_split", {}))
 
     if cfg.complete_deletion:
         homologies = complete_delete(homologies)
@@ -125,10 +203,18 @@ def process(
     LAST_RUN_INFO["timings"] = timings
     LAST_RUN_INFO["kernel_launches"] = pair_count.KERNEL_LAUNCHES - launches0
     LAST_RUN_INFO["plain_calls"] = pair_count.PLAIN_CALLS - plain0
+    LAST_RUN_INFO["extend_kernel_launches"] = (
+        anchor_extend.KERNEL_LAUNCHES - extend0
+    )
+    LAST_RUN_INFO["extend_plain_calls"] = anchor_extend.PLAIN_CALLS - extend_plain0
     if cfg.verbose >= 2:
         phases = "  ".join(f"{k}={v:.3f}s" for k, v in timings.items())
         print(
             f"phase timings ({ref.backend_name} index, "
+            f"{LAST_RUN_INFO['map_carrier']} mapped, "
+            f"{LAST_RUN_INFO['extend_kernel_launches']} extend launches, "
+            f"{LAST_RUN_INFO['extend_plain_calls']} extend plain calls, "
+            f"{LAST_RUN_INFO['map_rounds']} map rounds; "
             f"{cfg.count_backend} counts, "
             f"{LAST_RUN_INFO['compare_carrier']} carried, "
             f"{LAST_RUN_INFO['kernel_launches']} kernel launches, "

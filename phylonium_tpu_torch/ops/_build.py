@@ -1,11 +1,12 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, in ``phylonium_tpu_torch/_build/`` (not committed). The file
-name carries a hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. A build or load that
-fails raises :class:`KernelBuildError` with the compiler's output; there
-is no fallback.
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, in ``phylonium_tpu_torch/_build/`` (not
+committed). The file name carries a hash of the sources and flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is. A build
+or load that fails raises :class:`KernelBuildError` with the compiler's
+output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -26,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -63,25 +65,33 @@ def _library_path(sources: list[Path]) -> Path:
     return BUILD_DIR / f"libpt_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stderr[-8000:]}"
+        )
+    return proc.stderr
+
+
 def _compile(sources: list[Path], target: Path) -> str:
     BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     # build beside the target and rename: a concurrent process either
     # sees no library or a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stderr[-8000:]}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            logs = list(pool.map(
+                _run,
+                [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                 for src, obj in zip(sources, objects)],
+            ))
+        library = os.path.join(tmp, target.name)
+        _run([nvcc, "-shared", "-o", library, *objects])
+        os.replace(library, target)
+    return "".join(logs)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -97,6 +107,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.pt_set_partner_mask.restype = ctypes.c_int
     lib.pt_set_partner_mask.argtypes = [ctypes.c_void_p]
+    lib.pt_diagonal_neq.restype = ctypes.c_int
+    lib.pt_diagonal_neq.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
 
 
 def load() -> ctypes.CDLL:
