@@ -27,7 +27,24 @@ non-zero exit and no result line:
 8. end to end with hybrid mapping: an outbreak-shaped panel (8 genomes x
    5 Mbp at 0.2-2 %) through the port's CLI with ``--map-backend hybrid``
    on the card, byte for byte against the same reference CLI (native
-   mapping, host counting).
+   mapping, host counting);
+9. hold the pileup-build kernel against its plain PyTorch version, byte
+   for byte, at edge shapes (ref_len 1 and 2, odd and even lengths,
+   records at every alignment, reverse records, separators, a row with no
+   records, overlay entries on both nibbles of a byte, groups of 1 and
+   300 rows, and a write into a row slice of a larger panel);
+10. the same at its production shapes, one streamed group of the
+    116 x 5 Mbp panel (29 rows) and one low-memory group of the
+    1000 x 1 Mbp panel (128 rows), mapped by the native mapper, with both
+    times and the bytes written per second;
+11. streamed end to end: a 116 x 5 Mbp eco29-shaped panel through the
+    port's CLI with ``PHYLONIUM_TPU_STREAM=force``, byte for byte against
+    the port's serial run (which phase 7 holds against the JAX package),
+    in the order serial, streamed, streamed, serial, with both runs'
+    phase timings;
+12. low-memory end to end: a 1000 x 1 Mbp panel through the port's CLI
+    with ``PHYLONIUM_TPU_LOWMEM=force`` and with the serial pipeline, each
+    in a child process whose peak RSS is printed, byte for byte.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit as nvidia-smi prints them, and the device JSON.
@@ -58,6 +75,11 @@ EXTEND_SOURCE = "phylonium_tpu_torch/csrc/diagonal_neq.cu"
 EXTEND_REPLACES = "phylonium_tpu/ops/anchor_extend_pallas.py:46"
 EXTEND_ALSO_REPLACES = "phylonium_tpu/ops/anchor_extend.py:114"
 CHUNK = 1 << 19  # the hybrid mapper's request length (DEFAULT_CHUNK)
+
+BUILD_SOURCE = "phylonium_tpu_torch/csrc/pileup_build.cu"
+# the XLA program of the streamed feeder, and its build core
+BUILD_REPLACES = "phylonium_tpu/ops/pileup_device.py:198"
+BUILD_ALSO_REPLACES = "phylonium_tpu/ops/pileup_device.py:124"
 
 INVALID = 10
 
@@ -346,8 +368,8 @@ def eco29_panel(n: int = 29, length: int = 5_000_000, seed: int = 29,
                 low: float = 0.01, span: float = 0.05):
     """The eco29-shaped panel of bench.py's simulate_panel: a base genome,
     n-1 substitution mutants at ``low``..``low + span`` (1%..6%), the last
-    one a draft assembly in 5 contigs with a 500 kb inversion. Returns
-    contig lists."""
+    one a draft assembly in 5 contigs with a 500 kb inversion. Yields each
+    genome's contig list, one genome live at a time."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -355,22 +377,21 @@ def eco29_panel(n: int = 29, length: int = 5_000_000, seed: int = 29,
     code = np.zeros(256, np.uint8)
     code[acgt] = np.arange(4, dtype=np.uint8)
     ref = rng.choice(acgt, length)
-    genomes = [ref.tobytes()]
+    yield [ref.tobytes()]
     for k in range(1, n):
         arr = ref.copy()
         hit = np.flatnonzero(rng.random(length) < low + span * (k - 1) / max(n - 2, 1))
         arr[hit] = acgt[(code[arr[hit]] + rng.integers(1, 4, hit.size)) % 4]
-        genomes.append(arr.tobytes())
-    draft = bytearray(genomes[-1])
+        if k < n - 1:
+            yield [arr.tobytes()]
+    draft = bytearray(arr.tobytes())
     third = length // 3
     inv = min(500_000, length // 6)
     draft[third : third + inv] = bytes(draft[third : third + inv])[::-1].translate(
         bytes.maketrans(b"ACGT", b"TGCA")
     )
     contig = length // 5
-    out = [[g] for g in genomes[:-1]]
-    out.append([bytes(draft[i * contig : (i + 1) * contig]) for i in range(5)])
-    return out
+    yield [bytes(draft[i * contig : (i + 1) * contig]) for i in range(5)]
 
 
 def write_fasta(panel, directory: str) -> list[str]:
@@ -511,6 +532,330 @@ def end_to_end_hybrid(device_name: str, n: int = 8, length: int = 5_000_000) -> 
             "timings": timings, "wall": wall}
 
 
+def build_inputs(device, queries, homologies, ref_len):
+    """One group's host prep, copied to ``device``: (words, intervals,
+    overlay) as ``pileup_device.build_packed_rows`` takes them."""
+    import torch
+
+    from phylonium_tpu_torch.ops import pileup_device
+
+    inputs = pileup_device.prepare_group(queries, homologies, ref_len)
+    t = [torch.from_numpy(a).to(device) for a in inputs]
+    return t[0], t[1], tuple(t[2:])
+
+
+def build_compare(got, plain, what: str) -> int:
+    """Max |kernel byte - plain byte|; raises if not 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (got.to(torch.int16) - plain.to(torch.int16)).abs()
+    err = int(diff.max().item()) if diff.numel() else 0
+    if err:
+        raise AssertionError(
+            f"pileup_build kernel disagrees with the plain version at {what}: "
+            f"{int((diff > 0).sum())} bytes differ"
+        )
+    return err
+
+
+def check_build_edges(device, seed: int = 13) -> int:
+    """pileup_build kernel == plain, byte for byte, at the edge shapes of
+    tests/pileup_cases.py, and into a row slice of a larger panel."""
+    import numpy as np
+    import torch
+
+    from phylonium_tpu_torch.ops import pileup_device
+    from phylonium_tpu_torch.ops.states import packed_width
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from pileup_cases import EDGE_CASES
+
+    rng = np.random.default_rng(seed)
+    worst = 0
+    for name, make in EDGE_CASES.items():
+        queries, homologies, ref_len = make(rng)
+        words, intervals, overlay = build_inputs(device, queries, homologies, ref_len)
+        shape = (len(queries), packed_width(ref_len))
+        got = torch.empty(shape, dtype=torch.uint8, device=device)
+        plain = torch.empty_like(got)
+        pileup_device.build_packed_rows(words, intervals, overlay, ref_len, got)
+        pileup_device.build_packed_rows_reference(words, intervals, overlay, ref_len, plain)
+        worst = max(worst, build_compare(got, plain, name))
+        print(f"  build edge {name} ({shape[0]} x {ref_len}, "
+              f"{intervals.shape[1]} records a row, {overlay[1].numel()} "
+              f"overlay entries): kernel == plain", flush=True)
+    # a group written at row offset 5 of a 17-row panel; the rest untouched
+    queries, homologies, ref_len = EDGE_CASES["odd_ref_len_301"](rng)
+    words, intervals, overlay = build_inputs(device, queries, homologies, ref_len)
+    rows = len(queries)
+    got = torch.full((17, packed_width(ref_len)), 7, dtype=torch.uint8, device=device)
+    plain = got.clone()
+    pileup_device.build_packed_rows(words, intervals, overlay, ref_len, got[5 : 5 + rows])
+    pileup_device.build_packed_rows_reference(
+        words, intervals, overlay, ref_len, plain[5 : 5 + rows]
+    )
+    worst = max(worst, build_compare(got, plain, "a row slice at offset 5"))
+    print(f"  build edge: {rows} rows into rows 5..{4 + rows} of a 17-row panel: "
+          "kernel == plain, other rows untouched", flush=True)
+    return worst
+
+
+def mapped_group(rows: int, length: int, seed: int):
+    """An eco29-shaped group of ``rows`` genomes mapped onto the first by
+    the native mapper: (queries, homologies, ref_len)."""
+    import numpy as np
+
+    from phylonium_tpu.config import RunConfig
+    from phylonium_tpu.core.anchor_stats import min_anchor_length
+    from phylonium_tpu.core.map_native import map_batch_native
+    from phylonium_tpu.data.sequence import Sequence, gc_content
+    from phylonium_tpu.index.esa import ESAIndex
+    from phylonium_tpu.utils.progress import ProgressBar
+
+    queries = [np.frombuffer(b"!".join(c), np.uint8)
+               for c in eco29_panel(rows, length, seed)]
+    subject = Sequence("S000", queries[0].tobytes())
+    ref = ESAIndex(subject, backend="native")
+    threshold = min_anchor_length(
+        RunConfig().anchor_p_value, gc_content(subject.nucl), ref.size
+    )
+    bar = ProgressBar("", rows, enabled=False)
+    homologies = map_batch_native(ref._native, queries, threshold, bar, 0)
+    return queries, homologies, length
+
+
+def check_build_production(device, rows: int, length: int, seed: int) -> dict:
+    """pileup_build kernel == plain (and == the host pileup, packed) on one
+    mapped group, with the host prep, copy, kernel and plain times."""
+    import torch
+
+    from phylonium_tpu.core.pileup import build_pileup
+    from phylonium_tpu.ops.shapes import pack_states
+    from phylonium_tpu_torch.ops import pileup_device
+    from phylonium_tpu_torch.ops.states import packed_width
+
+    queries, homologies, ref_len = mapped_group(rows, length, seed)
+    t0 = time.perf_counter()
+    inputs = pileup_device.prepare_group(queries, homologies, ref_len)
+    prep_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    t = [torch.from_numpy(a).pin_memory().to(device, non_blocking=True) for a in inputs]
+    torch.cuda.synchronize()
+    copy_ms = 1e3 * (time.perf_counter() - t0)
+    words, intervals, overlay = t[0], t[1], tuple(t[2:])
+    width = packed_width(ref_len)
+    got = torch.empty((rows, width), dtype=torch.uint8, device=device)
+    plain = torch.empty_like(got)
+    pileup_device.build_packed_rows(words, intervals, overlay, ref_len, got)
+    pileup_device.build_packed_rows_reference(words, intervals, overlay, ref_len, plain)
+    err = build_compare(got, plain, f"{rows} x {length}")
+    host = pack_states(build_pileup(queries, homologies, ref_len), rows, width)
+    if not torch.equal(got.cpu(), torch.from_numpy(host)):
+        raise AssertionError(f"pileup_build differs from the host pileup at {rows} x {length}")
+    ms = time_ms(lambda: pileup_device._launch(words, intervals, overlay, ref_len, got), reps=5)
+    plain_ms = time_ms(lambda: pileup_device._plain(words, intervals, overlay, ref_len, plain))
+    written = rows * width
+    gb_s = written / (ms * 1e-3) / 1e9
+    print(
+        f"  build production {rows} x {length}: kernel == plain == host pileup; "
+        f"{intervals.shape[1]} records a row (max), {overlay[1].numel()} overlay "
+        f"entries, {4 * words.numel()} bytes of 2-bit codes; kernel {ms:.4f} ms "
+        f"({written} bytes written, {gb_s:.1f} GB/s), plain {plain_ms:.4f} ms; "
+        f"host prep {prep_ms:.3f} ms, pinned copy to the card {copy_ms:.3f} ms",
+        flush=True,
+    )
+    return {"rows": rows, "length": length, "ms": ms, "plain_ms": plain_ms,
+            "gb_s": gb_s, "max_abs_err": err}
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables (None unsets) for the body only."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def zero_counts() -> None:
+    from phylonium_tpu_torch.ops import anchor_extend, pair_count, pileup_device
+
+    for module in (anchor_extend, pair_count, pileup_device):
+        module.KERNEL_LAUNCHES = 0
+        module.PLAIN_CALLS = 0
+
+
+def end_to_end_streamed(device_name: str, n: int = 116, length: int = 5_000_000) -> dict:
+    """The 116 x 5 Mbp panel streamed and serial through the port's CLI,
+    in the order serial, streamed, streamed, serial; byte for byte."""
+    from phylonium_tpu.core.stream import effective_group_rows
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+    from phylonium_tpu_torch.ops import pair_count, pileup_device
+
+    groups = -(-n // effective_group_rows(n))
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        files = write_fasta(eco29_panel(n, length), tmp)
+        args = ["--progress=never", "--device", device_name, *files]
+        for mode in ("serial", "streamed", "streamed", "serial"):
+            with env_set(PHYLONIUM_TPU_STREAM="force" if mode == "streamed" else "0",
+                         PHYLONIUM_TPU_STREAM_GROUP=None):
+                zero_counts()
+                t0 = time.perf_counter()
+                rc, out = run_port_cli(args)
+                wall = time.perf_counter() - t0
+                counts = {
+                    "build_launches": pileup_device.KERNEL_LAUNCHES,
+                    "build_plain": pileup_device.PLAIN_CALLS,
+                    "count_launches": pair_count.KERNEL_LAUNCHES,
+                    "count_plain": pair_count.PLAIN_CALLS,
+                }
+            if rc != 0:
+                raise RuntimeError(f"port CLI ({mode}) exited {rc}")
+            check_phylip(out, n)
+            info = dict(LAST_RUN_INFO)
+            runs.append({"mode": mode, "out": out, "wall": wall, "counts": counts,
+                         "timings": info["timings"], "groups": info["stream_groups"]})
+    if any(r["out"] != runs[0]["out"] for r in runs):
+        raise AssertionError("streamed output differs from the serial run's")
+    if "jax" in sys.modules:
+        raise AssertionError("the streamed run imported jax")
+    for r in runs:
+        c = r["counts"]
+        want_build = groups if r["mode"] == "streamed" else 0
+        if (c["build_launches"] != want_build or c["build_plain"]
+                or c["count_launches"] != 1 or c["count_plain"]
+                or r["groups"] != want_build):
+            raise AssertionError(
+                f"{r['mode']} run: {c}, {r['groups']} groups; expected "
+                f"{want_build} build launches, 0 plain calls, 1 count launch"
+            )
+    print(f"  streamed e2e {n} x {length}: byte-identical to the serial run; "
+          f"{groups} groups of {effective_group_rows(n)}, {groups} build "
+          "launches, 0 build plain calls, 1 pair-count launch each", flush=True)
+    for r in runs:
+        print(f"  {r['mode']:8s} wall {r['wall']:.3f} s, phases "
+              f"{json.dumps(r['timings'])}", flush=True)
+    streamed = [r for r in runs if r["mode"] == "streamed"]
+    return {"launches": streamed[0]["counts"]["build_launches"],
+            "runs": [{k: r[k] for k in ("mode", "wall", "timings")} for r in runs]}
+
+
+_CHILD = """
+import json, sys
+from phylonium_tpu_torch.cli import main
+rc = main(sys.argv[1:])
+from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+print(json.dumps({"rc": rc, "jax": "jax" in sys.modules,
+                  "info": LAST_RUN_INFO}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+# A child's ru_maxrss starts at its parent's high-water mark (Linux
+# carries the memory map's peak across fork and exec), and this process
+# has held gigabytes by now. So each CLI child is started by a small
+# launcher process, whose own peak is tens of MB, and the launcher reads
+# the child's peak with os.wait4.
+_LAUNCHER = """
+import json, os, subprocess, sys, time
+spec = json.loads(sys.argv[1])
+with open(spec["out"], "wb") as out, open(spec["err"], "wb") as err:
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(spec["argv"], stdout=out, stderr=err, cwd=spec["cwd"])
+    _, status, usage = os.wait4(proc.pid, 0)
+print(json.dumps({"rc": os.waitstatus_to_exitcode(status),
+                  "wall": time.perf_counter() - t0,
+                  "maxrss_kb": usage.ru_maxrss}))
+"""
+
+
+def run_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 600) -> dict:
+    """The port's CLI in a child process; returns its stdout, its
+    LAST_RUN_INFO, its wall and its peak RSS (``os.wait4``)."""
+    import signal
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra)
+    spec = {"argv": [sys.executable, "-c", _CHILD, *args], "cwd": cwd,
+            "out": os.path.join(cwd, "child.out"),
+            "err": os.path.join(cwd, "child.err")}
+    # a process group of its own, so that a timeout stops the launcher and
+    # the child together
+    launcher = subprocess.Popen(
+        [sys.executable, "-c", _LAUNCHER, json.dumps(spec)],
+        stdout=subprocess.PIPE, cwd=cwd, env=env, start_new_session=True,
+    )
+    try:
+        report, _ = launcher.communicate(timeout=timeout)
+    finally:
+        if launcher.returncode is None:
+            os.killpg(launcher.pid, signal.SIGKILL)
+            launcher.wait()
+    with open(spec["err"], "rb") as f:
+        stderr = f.read().decode(errors="replace")
+    if launcher.returncode != 0:
+        raise RuntimeError(f"launcher exited {launcher.returncode}")
+    usage = json.loads(report)
+    if usage["rc"] != 0:
+        raise RuntimeError(f"child CLI exited {usage['rc']}: {stderr[-2000:]}")
+    info = json.loads(stderr.strip().splitlines()[-1])
+    with open(spec["out"], "rb") as f:
+        stdout = f.read()
+    return {"out": stdout, "info": info["info"], "jax": info["jax"],
+            "wall": usage["wall"], "rss_mb": usage["maxrss_kb"] / 1024}
+
+
+def end_to_end_lowmem(device_name: str, n: int = 1000, length: int = 1_000_000) -> dict:
+    """The 1000 x 1 Mbp panel through the low-memory pipeline and the
+    serial one, each in a child process; byte for byte, peak RSS of each."""
+    from phylonium_tpu.core.lowmem import group_rows_for
+
+    group = group_rows_for(n, length)
+    groups = -(-n // group)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lowmem_") as tmp:
+        files = write_fasta(eco29_panel(n, length, seed=1000), tmp)
+        args = ["--progress=never", "--device", device_name, *files]
+        low = run_child(args, tmp, {"PHYLONIUM_TPU_LOWMEM": "force"})
+        serial = run_child(args, tmp, {"PHYLONIUM_TPU_LOWMEM": "0"})
+    if low["out"] != serial["out"]:
+        raise AssertionError("low-memory output differs from the serial run's")
+    check_phylip(low["out"].decode(), n)
+    info = low["info"]
+    if low["jax"] or serial["jax"]:
+        raise AssertionError("a child run imported jax")
+    if (info.get("lowmem", {}).get("group_rows") != group
+            or info["compare_carrier"] != "cuda-kernel"
+            or info["build_kernel_launches"] != groups
+            or info["stream_groups"] != groups
+            or info["build_plain_calls"] or info["plain_calls"]
+            or info["kernel_launches"] != 1):
+        raise AssertionError(f"the low-memory run was not device-carried: {info}")
+    if "lowmem" in serial["info"] or serial["info"]["kernel_launches"] != 1:
+        raise AssertionError(f"the serial run took another path: {serial['info']}")
+    print(f"  low-memory e2e {n} x {length}: byte-identical to the serial run; "
+          f"{groups} groups of {group}, {groups} build launches, 0 plain calls, "
+          f"carrier {info['compare_carrier']}", flush=True)
+    for name, r in (("low-mem", low), ("serial", serial)):
+        print(f"  {name:8s} peak RSS {r['rss_mb']:.1f} MB, wall {r['wall']:.3f} s, "
+              f"phases {json.dumps(r['info']['timings'])}", flush=True)
+    return {"group_rows": group, "groups": groups,
+            "rss_mb": {"lowmem": low["rss_mb"], "serial": serial["rss_mb"]},
+            "wall": {"lowmem": low["wall"], "serial": serial["wall"]}}
+
+
 def main() -> int:
     import torch
 
@@ -564,6 +909,25 @@ def main() -> int:
     with phase("hybrid end to end"):
         hybrid = end_to_end_hybrid("cuda")
 
+    with phase("build edge shapes"):
+        build_worst = check_build_edges(device)
+
+    with phase("build production shapes"):
+        # one streamed group of 116 x 5 Mbp (effective_group_rows(116)) and
+        # one low-memory group of 1000 x 1 Mbp (group_rows_for(1000, 1 M))
+        streamed_group = check_build_production(device, 29, 5_000_000, seed=116)
+        lowmem_group = check_build_production(device, 128, 1_000_000, seed=1000)
+        torch.cuda.empty_cache()
+    build_worst = max(build_worst, streamed_group["max_abs_err"],
+                      lowmem_group["max_abs_err"])
+
+    with phase("streamed end to end"):
+        streamed = end_to_end_streamed("cuda")
+        torch.cuda.empty_cache()
+
+    with phase("low-memory end to end"):
+        end_to_end_lowmem("cuda")
+
     print(json.dumps({"kernels": [{
         "name": "pair_count",
         "route": "cuda",
@@ -592,6 +956,21 @@ def main() -> int:
         "gbp_s": ext["micro"]["gbp_s"],
         f"ms_8x{CHUNK}": ext["hybrid"]["ms"],
         f"plain_ms_8x{CHUNK}": ext["hybrid"]["plain_ms"],
+        "build_s": _build.BUILD_INFO["seconds"],
+    }, {
+        "name": "pileup_build",
+        "route": "cuda",
+        "source": BUILD_SOURCE,
+        "replaces": BUILD_REPLACES,
+        "also_replaces": BUILD_ALSO_REPLACES,
+        "launches": streamed["launches"],
+        "max_abs_err": build_worst,
+        "ms": streamed_group["ms"],
+        "plain_ms": streamed_group["plain_ms"],
+        "shape": "29 x 5000000",
+        "gb_s": streamed_group["gb_s"],
+        "ms_128x1000000": lowmem_group["ms"],
+        "plain_ms_128x1000000": lowmem_group["plain_ms"],
         "build_s": _build.BUILD_INFO["seconds"],
     }]}), flush=True)
     print(info["nvidia_smi"].splitlines()[0], flush=True)

@@ -2,8 +2,14 @@
 
 The flags are the JAX package's (phylonium_tpu/cli.py, parsed by its
 ``parse_args``) plus ``--device``, which names the torch device of the
-pair count and of hybrid mapping's diagonal bitmaps. The run is the JAX CLI's one-shot path: read the FASTA files,
-pick the reference, run the pipeline (twice with ``-2``), print PHYLIP.
+pair count, of hybrid mapping's diagonal bitmaps and of the streamed and
+low-memory paths' pileup build. The run is the JAX CLI's: read the FASTA
+files (2-bit compacted when the low-memory path is predicted), pick the
+reference, run the pipeline (twice with ``-2``), print PHYLIP. The
+streamed and low-memory paths are reached through the JAX package's
+environment switches (``PHYLONIUM_TPU_STREAM``,
+``PHYLONIUM_TPU_STREAM_GROUP``, ``PHYLONIUM_TPU_LOWMEM``,
+``PHYLONIUM_TPU_LOWMEM_BYTES``); the port adds no flag for them.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from phylonium_tpu.cli import cleanup_names, parse_args
+from phylonium_tpu.core.lowmem import should_lowmem
 from phylonium_tpu.core.reference_pick import pick_first_pass, pick_second_pass
 from phylonium_tpu.data.sequence import join
 from phylonium_tpu.io.fasta import read_genome
@@ -29,8 +36,9 @@ USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
 \tEach FASTA file is one genome (multi-contig files are fine).
 
 Options:
-      --device=DEV     Count all pairs, and extend hybrid-mapping anchors,
-                       on DEV: 'cuda' (default) or 'cpu'
+      --device=DEV     Count all pairs, build streamed pileup rows and
+                       extend hybrid-mapping anchors on DEV: 'cuda'
+                       (default) or 'cpu'
   -2, --2pass          Rerun with the most central genome as reference
   -b, --bootstrap=N    Also print N-1 bootstrapped distance matrices
   --complete-deletion  Keep only reference columns covered in every genome
@@ -79,18 +87,38 @@ def _split_device(argv: list[str]) -> tuple[str, list[str]] | None:
     return device, rest
 
 
-def _read_all(file_names: list[str], workers: int):
-    """Read and join every genome, in order, a bounded few files ahead."""
+def _read_all(file_names: list[str], workers: int, compact: bool):
+    """Read and join every genome, in order, a bounded few files ahead;
+    with ``compact``, 2-bit compact each one as it arrives."""
+
+    def joined(genome):
+        seq = join(genome)
+        if compact:
+            seq.compact()
+        return seq
+
     with ThreadPoolExecutor(max_workers=workers) as pool:
         pending: deque = deque()
         queries = []
         for name in file_names:
             pending.append(pool.submit(read_genome, name))
             if len(pending) >= 2 * workers:
-                queries.append(join(pending.popleft().result()))
+                queries.append(joined(pending.popleft().result()))
         while pending:
-            queries.append(join(pending.popleft().result()))
+            queries.append(joined(pending.popleft().result()))
     return queries
+
+
+def _predicts_lowmem(file_names: list[str], cfg: TorchRunConfig) -> bool:
+    """Will the pipeline take the low-memory path? Predicted from the
+    file sizes, as the JAX CLI does, so that sequences are compacted at
+    read time and the raw panel never exists; the pipeline decides again
+    on the exact sizes, and compaction is transparent either way."""
+    try:
+        est_bp = int(sum(os.path.getsize(f) for f in file_names) * 0.98)
+    except OSError:
+        return False
+    return should_lowmem(len(file_names), est_bp, cfg)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -150,7 +178,8 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         queries = _read_all(
-            file_names, max(cfg.threads or min(8, len(file_names)), 1)
+            file_names, max(cfg.threads or min(8, len(file_names)), 1),
+            _predicts_lowmem(file_names, cfg),
         )
     except OSError as e:
         print(f"{PROG}: {e.filename}: {e.strerror}", file=sys.stderr)

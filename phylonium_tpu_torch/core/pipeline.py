@@ -1,22 +1,32 @@
-"""The one-shot pipeline: index -> map -> pileup -> all-pairs counts.
+"""The pipeline: index -> map -> pileup -> all-pairs counts.
 
 It follows the JAX package's ``process`` (phylonium_tpu/core/pipeline.py)
-on its one-shot path and imports every host step from there: the suffix
-index, the native and Python mappers, complete deletion, the pileup build
-and the ``-p`` position file are jax-free host code (C++ in ``native/``
-and numpy). Two steps differ: hybrid mapping (``--map-backend hybrid``)
-computes its diagonal bitmaps on the torch device the configuration
-names, through core/hybrid_map.py, and the all-pairs count runs once on
-that device, through ops/pair_count.py.
+and imports every host step from there: the suffix index, the native and
+Python mappers, complete deletion, the pileup build and the ``-p``
+position file are jax-free host code (C++ in ``native/`` and numpy).
+What runs on the torch device the configuration names:
 
-Not carried here: the streamed feeder, low-memory mode, pod and mesh
-runs (and with them the multi-host mapping split), kernel prewarm, link
-calibration, and the host race. Options that would reach the JAX
-package's device code are refused.
+- the all-pairs count, once, through ops/pair_count.py;
+- hybrid mapping's diagonal bitmaps (``--map-backend hybrid``), through
+  core/hybrid_map.py;
+- the streamed path (``PHYLONIUM_TPU_STREAM=force``, core/stream.py): the
+  pileup rows are built on the device group by group while the host maps
+  the next group;
+- the low-memory path (``should_lowmem``, core/lowmem.py): the same
+  feeder on compacted sequences, or the host's windowed count under
+  ``--count-backend host``.
+
+Three paths, one result: each is byte-identical to the others.
+
+Not carried here: pod and mesh runs (and with them the multi-host
+mapping split), kernel prewarm, link calibration, the host race, the
+early query shipper and the device server. Options that would reach the
+JAX package's device code are refused.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -26,6 +36,7 @@ from phylonium_tpu.core.anchor_stats import min_anchor_length
 from phylonium_tpu.core.complete_deletion import complete_delete
 from phylonium_tpu.core.filter import filter_overlaps_max
 from phylonium_tpu.core.homology import Homology
+from phylonium_tpu.core.lowmem import should_lowmem
 from phylonium_tpu.core.pileup import build_pileup
 from phylonium_tpu.core.pipeline import map_queries as host_map_queries
 from phylonium_tpu.core.segsites import write_refpos
@@ -35,15 +46,24 @@ from phylonium_tpu.model.evo import EvoCounts
 from phylonium_tpu.utils.progress import ProgressBar
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
 from phylonium_tpu_torch.core.hybrid_map import hybrid_map_queries
-from phylonium_tpu_torch.ops import anchor_extend, pair_count
-from phylonium_tpu_torch.utils.platform import resolve_device
+from phylonium_tpu_torch.core.lowmem import map_count_lowmem
+from phylonium_tpu_torch.core.stream import DeviceRowFeeder, map_pileup_streamed
+from phylonium_tpu_torch.ops import anchor_extend, pair_count, pileup_device
+from phylonium_tpu_torch.utils.platform import carrier, resolve_device
 
 # What the most recent process() run did: which carrier mapped the
 # queries ("cuda-kernel", "torch-cpu", "native" or "python") and which
 # produced the pair counts ("cuda-kernel", "torch-cpu", "host" or
 # "numpy"), the phase timings in seconds, the kernel launches and
-# plain-version calls of both, and the hybrid mapper's device rounds.
+# plain-version calls of the count, of hybrid mapping's extension and of
+# the pileup build, the hybrid mapper's device rounds, the groups the
+# streamed feeder built, and, on the low-memory path, its group size and
+# number of homologies ("lowmem").
 LAST_RUN_INFO: dict = {}
+
+# the wrappers whose launches and plain calls a run reports, by the key
+# prefix of LAST_RUN_INFO
+_COUNTED = {"": pair_count, "extend_": anchor_extend, "build_": pileup_device}
 
 
 def refuse_unported(cfg: TorchRunConfig) -> None:
@@ -75,9 +95,7 @@ def map_queries(
         return host_map_queries(ref, threshold, queries, cfg)
 
     device = resolve_device(cfg.device)
-    LAST_RUN_INFO["map_carrier"] = (
-        "cuda-kernel" if device.type == "cuda" else "torch-cpu"
-    )
+    LAST_RUN_INFO["map_carrier"] = carrier(device)
     n = len(queries)
     homologies: list[list[Homology]] = [None] * n  # type: ignore
     bar = ProgressBar(
@@ -146,33 +164,35 @@ def pair_counts(
         LAST_RUN_INFO["compare_carrier"] = "host"
         return pair_counts_host(states)
     device = resolve_device(cfg.device)
-    LAST_RUN_INFO["compare_carrier"] = (
-        "cuda-kernel" if device.type == "cuda" else "torch-cpu"
-    )
+    LAST_RUN_INFO["compare_carrier"] = carrier(device)
     return pair_count.pair_counts(states, device)
 
 
-def process(
-    subject: Sequence, queries: list[Sequence], cfg: TorchRunConfig
-) -> EvoCounts:
-    refuse_unported(cfg)
-    LAST_RUN_INFO.clear()
-    launches0 = pair_count.KERNEL_LAUNCHES
-    plain0 = pair_count.PLAIN_CALLS
-    extend0 = anchor_extend.KERNEL_LAUNCHES
-    extend_plain0 = anchor_extend.PLAIN_CALLS
-    timings: dict[str, float] = {}
-    n = len(queries)
+def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
+    """Take the streamed path (core/stream.py)?
 
-    t0 = time.perf_counter()
-    ref = ESAIndex(subject, backend=cfg.esa_backend)
-    timings["index"] = time.perf_counter() - t0
-    gc = gc_content(subject.nucl)
-    threshold = min_anchor_length(cfg.anchor_p_value, gc, ref.size)
+    Streaming is opt-in: ``PHYLONIUM_TPU_STREAM=force`` engages it, on
+    any device; unset or ``0`` keeps the serial phases. (The JAX
+    package's automatic gate is a model of the TPU link and does not
+    carry over; one for the H100 is work for later.) Even when forced,
+    the structural conditions of the JAX package's ``_should_stream``
+    hold: 'auto' counting, no mesh, none of complete deletion, ``-p`` or
+    checkpoints (each needs the whole homology set first), and native
+    mapping on a native index.
+    """
+    if os.environ.get("PHYLONIUM_TPU_STREAM", "") != "force":
+        return False
+    if cfg.count_backend != "auto" or cfg.mesh:
+        return False
+    if cfg.complete_deletion or cfg.print_positions or cfg.checkpoint_dir:
+        return False
+    if cfg.map_backend not in ("auto", "native"):
+        return False
+    return ref.backend_name == "native"
 
-    if cfg.verbose:
-        print(f"ref: {subject.name}", file=sys.stderr)
 
+def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
+    """Map every query, build the [N, L] pileup on the host, count."""
     t0 = time.perf_counter()
     homologies = map_queries(ref, threshold, queries, cfg)
     timings["map"] = time.perf_counter() - t0
@@ -190,32 +210,102 @@ def process(
     if cfg.print_positions:
         write_refpos(cfg.refpos_file_name, subject.nucl, states, homologies[0])
 
-    num_comparisons = (n * n - n) // 2
+    n = len(queries)
     bar = ProgressBar(
-        "Comparing the sequences", num_comparisons,
+        "Comparing the sequences", (n * n - n) // 2,
         enabled=cfg.progress_enabled,
     )
     t0 = time.perf_counter()
-    subs, homs = pair_counts(states, cfg)
+    counts = pair_counts(states, cfg)
     timings["compare"] = time.perf_counter() - t0
     bar.finish()
+    return counts
+
+
+def _streamed(ref, threshold, subject, queries, cfg, timings) -> tuple:
+    """Map in groups while the feeder builds each group's rows on the
+    device, then count the resident panel."""
+    device = resolve_device(cfg.device)
+    feeder = DeviceRowFeeder(len(queries), len(subject), device)
+    LAST_RUN_INFO["map_carrier"] = "native"
+    LAST_RUN_INFO["map_rounds"] = 0
+    t0 = time.perf_counter()
+    map_pileup_streamed(ref, threshold, queries, cfg, feeder)
+    timings["map+pileup+feed"] = time.perf_counter() - t0
+
+    n = len(queries)
+    bar = ProgressBar(
+        "Comparing the sequences", (n * n - n) // 2,
+        enabled=cfg.progress_enabled,
+    )
+    t0 = time.perf_counter()
+    counts = feeder.finish()
+    timings["compare"] = time.perf_counter() - t0
+    bar.finish()
+    LAST_RUN_INFO["compare_carrier"] = carrier(device)
+    LAST_RUN_INFO["stream_groups"] = feeder.groups
+    return counts
+
+
+def _lowmem(ref, threshold, queries, cfg, timings) -> tuple:
+    subs, homs, lm_timings, info = map_count_lowmem(ref, threshold, queries, cfg)
+    timings.update(lm_timings)
+    LAST_RUN_INFO["map_carrier"] = "native"
+    LAST_RUN_INFO["map_rounds"] = 0
+    LAST_RUN_INFO["compare_carrier"] = info.pop("carrier")
+    LAST_RUN_INFO["stream_groups"] = info.pop("groups", 0)
+    LAST_RUN_INFO["lowmem"] = info
+    return subs, homs
+
+
+def process(
+    subject: Sequence, queries: list[Sequence], cfg: TorchRunConfig
+) -> EvoCounts:
+    refuse_unported(cfg)
+    LAST_RUN_INFO.clear()
+    before = {
+        prefix: (module.KERNEL_LAUNCHES, module.PLAIN_CALLS)
+        for prefix, module in _COUNTED.items()
+    }
+    timings: dict[str, float] = {}
+
+    t0 = time.perf_counter()
+    ref = ESAIndex(subject, backend=cfg.esa_backend)
+    timings["index"] = time.perf_counter() - t0
+    gc = gc_content(subject.nucl)
+    threshold = min_anchor_length(cfg.anchor_p_value, gc, ref.size)
+
+    if cfg.verbose:
+        print(f"ref: {subject.name}", file=sys.stderr)
+
+    if should_lowmem(len(queries), sum(len(q) for q in queries), cfg, ref):
+        subs, homs = _lowmem(ref, threshold, queries, cfg, timings)
+    elif should_stream(cfg, ref):
+        subs, homs = _streamed(ref, threshold, subject, queries, cfg, timings)
+    else:
+        subs, homs = _serial(ref, threshold, subject, queries, cfg, timings)
+        LAST_RUN_INFO["stream_groups"] = 0
 
     LAST_RUN_INFO["timings"] = timings
-    LAST_RUN_INFO["kernel_launches"] = pair_count.KERNEL_LAUNCHES - launches0
-    LAST_RUN_INFO["plain_calls"] = pair_count.PLAIN_CALLS - plain0
-    LAST_RUN_INFO["extend_kernel_launches"] = (
-        anchor_extend.KERNEL_LAUNCHES - extend0
-    )
-    LAST_RUN_INFO["extend_plain_calls"] = anchor_extend.PLAIN_CALLS - extend_plain0
+    for prefix, module in _COUNTED.items():
+        launches, plain = before[prefix]
+        LAST_RUN_INFO[f"{prefix}kernel_launches"] = module.KERNEL_LAUNCHES - launches
+        LAST_RUN_INFO[f"{prefix}plain_calls"] = module.PLAIN_CALLS - plain
     if cfg.verbose >= 2:
         phases = "  ".join(f"{k}={v:.3f}s" for k, v in timings.items())
+        lowmem = LAST_RUN_INFO.get("lowmem")
         print(
             f"phase timings ({ref.backend_name} index, "
             f"{LAST_RUN_INFO['map_carrier']} mapped, "
             f"{LAST_RUN_INFO['extend_kernel_launches']} extend launches, "
             f"{LAST_RUN_INFO['extend_plain_calls']} extend plain calls, "
             f"{LAST_RUN_INFO['map_rounds']} map rounds; "
-            f"{cfg.count_backend} counts, "
+            f"{LAST_RUN_INFO['stream_groups']} stream groups, "
+            f"{LAST_RUN_INFO['build_kernel_launches']} build launches, "
+            f"{LAST_RUN_INFO['build_plain_calls']} build plain calls"
+            + (f"; low-mem, {lowmem['group_rows']} rows a group, "
+               f"{lowmem['homologies']} homologies" if lowmem else "")
+            + f"; {cfg.count_backend} counts, "
             f"{LAST_RUN_INFO['compare_carrier']} carried, "
             f"{LAST_RUN_INFO['kernel_launches']} kernel launches, "
             f"{LAST_RUN_INFO['plain_calls']} plain calls): {phases}",

@@ -116,17 +116,24 @@ def _mirror_upper(m: np.ndarray) -> np.ndarray:
     return upper + upper.T
 
 
-def pair_counts(
-    states: np.ndarray, device: torch.device
-) -> tuple[np.ndarray, np.ndarray]:
-    """All-pairs (substitutions, homologs) of an [N, L] uint8 pileup.
+def pair_counts_rows(rows: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """All-pairs (substitutions, homologs) of packed rows already in place.
 
-    One symmetric count on ``device`` for any N; the upper triangle is
-    mirrored and the diagonal zeroed (the reference never compares a
-    genome with itself). Returns int64 numpy arrays.
+    ``rows``: [N, W] uint8 split-nibble rows on their device (the
+    one-shot path's copy, or the streamed feeder's panel). One symmetric
+    count for any N; the upper triangle is mirrored and the diagonal
+    zeroed (the reference never compares a genome with itself). Returns
+    int64 numpy arrays.
     """
-    rows = to_device(pack_rows(states), device)
     matches, homs = cross_counts(rows, rows, symmetric=True)
     matches = _mirror_upper(matches.cpu().numpy().astype(np.int64))
     homs = _mirror_upper(homs.cpu().numpy().astype(np.int64))
     return homs - matches, homs
+
+
+def pair_counts(
+    states: np.ndarray, device: torch.device
+) -> tuple[np.ndarray, np.ndarray]:
+    """All-pairs (substitutions, homologs) of an [N, L] uint8 pileup,
+    packed on the host and copied to ``device``."""
+    return pair_counts_rows(to_device(pack_rows(states), device))

@@ -44,6 +44,12 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def carrier(device: torch.device) -> str:
+    """How a run reports work done on ``device``: 'cuda-kernel' (the
+    port's kernels) or 'torch-cpu' (their plain versions)."""
+    return "cuda-kernel" if device.type == "cuda" else "torch-cpu"
+
+
 def nvidia_smi_line() -> str | None:
     """``name, power.limit`` of the cards as nvidia-smi prints them."""
     tool = shutil.which("nvidia-smi")

@@ -1,0 +1,145 @@
+"""The port's pileup build (plain PyTorch route) against the JAX package.
+
+The same host prep (``phylonium_tpu.ops.pileup_prep``) feeds the JAX
+package's XLA program (``dispatch_build_packed``, on the CPU) and the
+port's ``build_packed_rows`` on a CPU tensor; both must equal, byte for
+byte, ``pack_states(build_pileup(...))`` at the port's aligned width.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from phylonium_tpu.config import ConfigError
+from phylonium_tpu.core.pileup import INVALID, build_pileup
+from phylonium_tpu.ops.pileup_device import dispatch_build_packed
+from phylonium_tpu.ops.pileup_prep import build_overlay, group_payload, prep_intervals
+from phylonium_tpu.ops.shapes import pack_states
+from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops.states import packed_width
+from pileup_cases import ACGT, EDGE_CASES, panel, raw
+
+
+def _port_rows(queries, homologies, ref_len, pad_rows=0):
+    """The port's plain build of one group, plus ``pad_rows`` record-less
+    rows, into a fresh [rows, W] tensor."""
+    packed, bases, seps = group_payload(queries)
+    intervals = prep_intervals(homologies, bases, ref_len, pad_rows)
+    overlay = build_overlay(intervals, queries, bases, seps, ref_len)
+    rows = intervals.shape[0]
+    out = torch.zeros((rows, packed_width(ref_len)), dtype=torch.uint8)
+    offsets, cols, vals = pileup_device.sort_overlay(overlay, rows)
+    before = pileup_device.PLAIN_CALLS, pileup_device.KERNEL_LAUNCHES
+    pileup_device.build_packed_rows(
+        torch.from_numpy(packed.view(np.int32)), torch.from_numpy(intervals),
+        tuple(map(torch.from_numpy, (offsets, cols, vals))), ref_len, out,
+    )
+    assert (pileup_device.PLAIN_CALLS, pileup_device.KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1])
+    return out.numpy(), (packed, intervals, overlay)
+
+
+def _check_against_jax_and_host(queries, homologies, ref_len, pad_rows=0,
+                                host_homologies=None):
+    got, (packed, intervals, overlay) = _port_rows(
+        queries, homologies, ref_len, pad_rows
+    )
+    width = packed_width(ref_len)
+    rows = len(queries) + pad_rows
+    jax_rows = np.asarray(dispatch_build_packed(
+        packed, intervals, overlay, ref_len, -(-ref_len // 2), width
+    ))
+    np.testing.assert_array_equal(got, jax_rows)
+    states = build_pileup(queries, host_homologies or homologies, ref_len)
+    np.testing.assert_array_equal(got, pack_states(states, rows, width))
+
+
+@pytest.mark.parametrize("ref_len,pad_rows", [(301, 0), (700, 3), (2600, 1)])
+def test_plain_build_equals_jax_and_host(rng, ref_len, pad_rows):
+    queries, homologies, _ = panel(rng, 7, ref_len)
+    _check_against_jax_and_host(queries, homologies, ref_len, pad_rows)
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_plain_build_edge_cases(rng, name):
+    """The edge shapes the card holds the kernel to (chip_smoke.py phase
+    9, tests/test_torch_pileup_device_cuda.py): the tilings at every
+    alignment mod 16 with separators, a zero-length record mid-list,
+    overlay entries on both nibbles of a byte, empty rows, 1 and 300
+    rows."""
+    _check_against_jax_and_host(*EDGE_CASES[name](rng))
+
+
+def test_plain_build_raw_homology_arrays(rng):
+    queries, homologies, _ = panel(rng, 9, 900)
+    _check_against_jax_and_host(
+        queries, [raw(hv) for hv in homologies], 900,
+        host_homologies=homologies,
+    )
+
+
+@pytest.mark.parametrize("ref_len", [1, 2, 33])
+def test_plain_build_all_empty_rows(rng, ref_len):
+    """Rows without records are INVALID in both nibbles, at every width."""
+    queries = [rng.choice(ACGT, 50).astype(np.uint8) for _ in range(3)]
+    got, _ = _port_rows(queries, [[], [], []], ref_len, pad_rows=2)
+    assert got.shape == (5, packed_width(ref_len))
+    assert (got == INVALID | INVALID << 4).all()
+    _check_against_jax_and_host(queries, [[], [], []], ref_len)
+
+
+def test_plain_build_writes_only_its_row_slice(rng):
+    """A group's rows land in a slice of a larger panel; the other rows
+    keep what they held."""
+    queries, homologies, ref_len = panel(rng, 4, 513)
+    want, _ = _port_rows(queries, homologies, ref_len)
+    inputs = pileup_device.prepare_group(queries, homologies, ref_len)
+    panel_rows = torch.full((9, packed_width(ref_len)), 7, dtype=torch.uint8)
+    pileup_device.build_packed_rows(
+        *(torch.from_numpy(a) for a in inputs[:2]),
+        tuple(torch.from_numpy(a) for a in inputs[2:]), ref_len,
+        panel_rows[3:7],
+    )
+    np.testing.assert_array_equal(panel_rows[3:7].numpy(), want)
+    assert (panel_rows[:3] == 7).all() and (panel_rows[7:] == 7).all()
+
+
+def test_overlay_is_sorted_per_row():
+    orow = np.array([2, 0, 2, 1 << 30, 0, 2], np.int32)
+    ocol = np.array([9, 4, 1, 0, 3, 5], np.int32)
+    oval = np.array([1, 2, 3, 0, 4, 5], np.uint8)
+    offsets, cols, vals = pileup_device.sort_overlay((orow, ocol, oval), 3)
+    assert offsets.tolist() == [0, 2, 2, 5]
+    assert cols.tolist() == [3, 4, 1, 5, 9]
+    assert vals.tolist() == [4, 2, 3, 5, 1]
+
+
+class _Huge:
+    def __len__(self):
+        return 1 << 31
+
+
+def test_int32_guard_refuses_a_huge_group():
+    with pytest.raises(ConfigError, match="device pileup group exceeds int32 "
+                       "indexing; use smaller row groups"):
+        pileup_device.prepare_group([_Huge()], [[]], 1000)
+
+
+def test_wrapper_refuses_bad_inputs(rng):
+    queries, homologies, _ = panel(rng, 2, 100)
+    inputs = pileup_device.prepare_group(queries, homologies, 100)
+    words, intervals = (torch.from_numpy(a) for a in inputs[:2])
+    overlay = tuple(torch.from_numpy(a) for a in inputs[2:])
+    with pytest.raises(ValueError, match="fewer than 50"):
+        pileup_device.build_packed_rows(
+            words, intervals, overlay, 100, torch.zeros((2, 49), dtype=torch.uint8)
+        )
+    with pytest.raises(ValueError, match="intervals must be"):
+        pileup_device.build_packed_rows(
+            words, intervals, overlay, 100, torch.zeros((3, 64), dtype=torch.uint8)
+        )
+    with pytest.raises(ValueError, match="words must be"):
+        pileup_device.build_packed_rows(
+            words.to(torch.int64), intervals, overlay, 100,
+            torch.zeros((2, 64), dtype=torch.uint8),
+        )

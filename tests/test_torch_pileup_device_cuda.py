@@ -1,0 +1,116 @@
+"""The CUDA pileup-build kernel, and the feeder around it, on a card.
+
+Skips without a CUDA device. Imports nothing of jax, so it runs on a
+machine with a card and no jax:
+
+    PHYLONIUM_TPU_TEST_REAL=1 python -m pytest -m cuda tests/test_torch_pileup_device_cuda.py
+"""
+
+import contextlib
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from phylonium_tpu.core.pileup import build_pileup
+from phylonium_tpu.ops.match_table import pair_counts_numpy
+from phylonium_tpu.ops.shapes import pack_states
+from phylonium_tpu_torch.core.stream import DeviceRowFeeder
+from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops.states import packed_width
+from pileup_cases import EDGE_CASES, panel, write_fasta_panel
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+def _on(device, queries, homologies, ref_len):
+    inputs = pileup_device.prepare_group(queries, homologies, ref_len)
+    tensors = [torch.from_numpy(a).to(device) for a in inputs]
+    return tensors[0], tensors[1], tuple(tensors[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_kernel_equals_plain_and_host(card, name):
+    queries, homologies, ref_len = EDGE_CASES[name](np.random.default_rng(3))
+    words, intervals, overlay = _on(card, queries, homologies, ref_len)
+    rows, width = len(queries), packed_width(ref_len)
+    got = torch.empty((rows, width), dtype=torch.uint8, device=card)
+    plain = torch.empty_like(got)
+    launches = pileup_device.KERNEL_LAUNCHES
+    pileup_device.build_packed_rows(words, intervals, overlay, ref_len, got)
+    pileup_device.build_packed_rows_reference(
+        words, intervals, overlay, ref_len, plain
+    )
+    torch.cuda.synchronize()
+    assert pileup_device.KERNEL_LAUNCHES == launches + 1
+    assert torch.equal(got, plain)
+    want = pack_states(build_pileup(queries, homologies, ref_len), rows, width)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_kernel_writes_only_its_row_slice(card):
+    queries, homologies, ref_len = panel(np.random.default_rng(4), 5, 1001)
+    words, intervals, overlay = _on(card, queries, homologies, ref_len)
+    full = torch.full((12, packed_width(ref_len)), 7, dtype=torch.uint8,
+                      device=card)
+    pileup_device.build_packed_rows(words, intervals, overlay, ref_len,
+                                    full[6:11])
+    want = torch.full_like(full, 7)
+    pileup_device.build_packed_rows_reference(
+        words, intervals, overlay, ref_len, want[6:11]
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(full, want)
+
+
+@pytest.mark.cuda
+def test_feeder_on_card_counts_equal_numpy(card):
+    queries, homologies, ref_len = panel(np.random.default_rng(5), 12, 700)
+    feeder = DeviceRowFeeder(12, ref_len, card)
+    for lo, hi in ((0, 5), (5, 9), (9, 12)):
+        feeder.feed(queries[lo:hi], homologies[lo:hi])
+    subs, homs = feeder.finish()
+    assert feeder.groups == 3
+    es, eh = pair_counts_numpy(build_pileup(queries, homologies, ref_len))
+    assert np.array_equal(subs, es) and np.array_equal(homs, eh)
+
+
+def _cli(args):
+    from phylonium_tpu_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--progress=never", "--device", "cuda", *args])
+    return rc, out.getvalue()
+
+
+@pytest.mark.cuda
+def test_streamed_and_lowmem_cli_on_card(card, tmp_path, monkeypatch):
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+
+    files = write_fasta_panel(tmp_path, 7, 20_000, seed=6, contigs=2)
+    rc, serial = _cli(files)
+    assert rc == 0
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM_GROUP", "3")
+    rc, streamed = _cli(files)
+    assert rc == 0 and streamed == serial
+    assert LAST_RUN_INFO["stream_groups"] == 3
+    assert LAST_RUN_INFO["build_kernel_launches"] == 3
+    assert LAST_RUN_INFO["build_plain_calls"] == 0
+    assert LAST_RUN_INFO["kernel_launches"] == 1
+    monkeypatch.delenv("PHYLONIUM_TPU_STREAM")
+    monkeypatch.delenv("PHYLONIUM_TPU_STREAM_GROUP")
+    monkeypatch.setenv("PHYLONIUM_TPU_LOWMEM", "force")
+    rc, low = _cli(files)
+    assert rc == 0 and low == serial
+    assert LAST_RUN_INFO["compare_carrier"] == "cuda-kernel"
+    assert LAST_RUN_INFO["build_kernel_launches"] == LAST_RUN_INFO["stream_groups"] == 1
