@@ -13,14 +13,16 @@ non-zero exit and no result line:
    bit, at edge shapes (tiny and ragged N, odd L, all-INVALID rows,
    symmetric and rectangular calls);
 4. the same at the main path's production shapes, 29 x 5 Mbp and
-   600 x 1 Mbp, with the kernel's and the plain version's times;
+   600 x 1 Mbp, also against ``torch._int_mm`` on the one-hot operands
+   (the library yardstick), with the kernel's, the plain version's and
+   the library call's times and the kernel's bound;
 5. hold the diagonal-mismatch kernel against its plain PyTorch version,
    word for word, at edge shapes (lengths 1 to 2^19, unaligned offsets
    and offsets at the text end, a limit of 0, 1 and 300 jobs, identical
    texts);
 6. the same at its production shapes, 128 jobs x 2^19 over a 5 Mbp
    genome's doubled text and 8 jobs x 2^19 of a hybrid round, with both
-   times;
+   times and the bound;
 7. end to end: an eco29-shaped panel (29 genomes x 5 Mbp) through the
    port's CLI on the card, whose PHYLIP output must equal, byte for byte,
    the JAX package's CLI with host counting (a jax-free subprocess);
@@ -36,7 +38,7 @@ non-zero exit and no result line:
 10. the same at its production shapes, one streamed group of the
     116 x 5 Mbp panel (29 rows) and one low-memory group of the
     1000 x 1 Mbp panel (128 rows), mapped by the native mapper, with both
-    times and the bytes written per second;
+    times, the bytes written per second and the bound;
 11. streamed end to end: a 116 x 5 Mbp eco29-shaped panel through the
     port's CLI with ``PHYLONIUM_TPU_STREAM=force``, byte for byte against
     the port's serial run (which phase 7 holds against the JAX package),
@@ -46,8 +48,14 @@ non-zero exit and no result line:
     with ``PHYLONIUM_TPU_LOWMEM=force`` and with the serial pipeline, each
     in a child process whose peak RSS is printed, byte for byte.
 
-The last lines are the kernel table as JSON, the card's name and power
-limit as nvidia-smi prints them, and the device JSON.
+The last lines are the kernel table as JSON (per kernel: launches on its
+main path, the largest error, the kernel's, the plain version's and the
+library call's times, and ``bound_ms``, the least time the card could take
+for the same work: bytes moved over 3.35 TB/s or operations over their
+peak rate, whichever is larger), the card's name and power limit as
+nvidia-smi prints them, and the device JSON. Everything the port runs
+here, host layer included, is the port's own: the only use of the JAX
+package is its CLI in a subprocess, as the reference output.
 """
 
 from __future__ import annotations
@@ -196,12 +204,72 @@ def time_ms(fn, runs: int = 3, reps: int = 1) -> float:
     return statistics.median(times)
 
 
+# Published peaks of one H100 SXM at 700 W (the on-chip measurement
+# guide's table): HBM bandwidth and dense int8 tensor-core operations.
+HBM_BYTES_S = 3.35e12
+INT8_TENSOR_OPS_S = 1979e12
+
+
+def bound(bytes_moved: float, int8_ops: float = 0.0) -> tuple[float, str]:
+    """(ms, resource): the larger of bytes over the memory rate and int8
+    tensor-core operations over their peak rate. The byte-compare kernels
+    pass bytes alone: no operation of theirs has a rate that could decide."""
+    by_bytes = 1e3 * bytes_moved / HBM_BYTES_S
+    by_ops = 1e3 * int8_ops / INT8_TENSOR_OPS_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def span_bytes(offsets, limits, length: int) -> int:
+    """Bytes of one text that jobs reading [offset, min(offset + length,
+    limit)) touch, each byte counted once however many jobs read it."""
+    import numpy as np
+
+    start = np.asarray(offsets, np.int64)
+    end = np.minimum(start + length, np.broadcast_to(np.asarray(limits, np.int64), start.shape))
+    keep = end > start
+    order = np.argsort(start[keep], kind="stable")
+    start, end = start[keep][order], end[keep][order]
+    if not start.size:
+        return 0
+    reach = np.maximum.accumulate(end)
+    before = np.concatenate((start[:1], reach[:-1]))
+    return int(np.sum(reach - np.maximum(start, before)))
+
+
+def int_mm_ms(rows, check) -> float:
+    """``torch._int_mm`` on the one-hot operands of ``rows`` (the library
+    yardstick): rows padded to the multiples it asks for, operands on the
+    card before the clock starts; checks [matches | homs] against ``check``."""
+    import torch
+
+    from phylonium_tpu_torch.ops.match_matrix import onehot_operands
+
+    n = rows.shape[0]
+    ops_a, ops_b = onehot_operands(rows, rows)
+    pad_a = max(24, -(-n // 8) * 8) - n  # more than 16 rows, a multiple of 8
+    pad_b = -(-2 * n // 8) * 8 - 2 * n
+    ops_a = torch.nn.functional.pad(ops_a, (0, 0, 0, pad_a))
+    ops_b = torch.nn.functional.pad(ops_b, (0, 0, 0, pad_b))
+    out = torch._int_mm(ops_a, ops_b.T)
+    matches, homs = check
+    if not (torch.equal(out[:n, :n].to(torch.int64), matches)
+            and torch.equal(out[:n, n : 2 * n].to(torch.int64), homs)):
+        raise AssertionError("torch._int_mm on the one-hot operands disagrees")
+    del out
+    ms = time_ms(lambda: torch._int_mm(ops_a, ops_b.T))
+    del ops_a, ops_b
+    torch.cuda.empty_cache()
+    return ms
+
+
 def check_production(device, n: int, length: int, seed: int) -> dict:
-    """Kernel == plain at a production shape, with both times."""
+    """Kernel == plain at a production shape, with the kernel's, the plain
+    version's and torch._int_mm's times, and the bound."""
     import numpy as np
 
     from phylonium_tpu_torch.ops import pair_count
     from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+    from phylonium_tpu_torch.ops.match_table import MATCH_PLANES
     from phylonium_tpu_torch.ops.states import pack_rows, to_device
 
     import torch
@@ -219,15 +287,27 @@ def check_production(device, n: int, length: int, seed: int) -> dict:
     m, h = pair_count.cross_counts(rows, rows, symmetric=True)
     mr, hr = cross_counts_reference(rows, rows)
     err = max(compare(m, mr, True), compare(h, hr, True))
-    del m, h, mr, hr
+    del m, h
+    library_ms = int_mm_ms(rows, (mr, hr))
+    del mr, hr
     ms = time_ms(lambda: pair_count.cross_counts(rows, rows, symmetric=True))
     plain_ms = time_ms(lambda: cross_counts_reference(rows, rows))
+    # the upper triangle with its diagonal, one multiply-add a cell and
+    # column for each match plane (states that share a partner set share
+    # one) and one for validity; the packed rows read once, two int32
+    # [n, n] outputs written
+    cells = n * (n + 1) // 2
+    macs = len(MATCH_PLANES) + 1
+    bound_ms, bound_by = bound(rows.numel() + 2 * 4 * n * n, 2 * macs * cells * length)
     print(
-        f"  production N={n} L={length}: kernel == plain; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms; host pack {pack_ms:.3f} ms, "
+        f"  production N={n} L={length}: kernel == plain == torch._int_mm; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch._int_mm "
+        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.1f} % of the bound; host pack {pack_ms:.3f} ms, "
         f"pinned copy to the card {copy_ms:.3f} ms", flush=True,
     )
     return {"n": n, "length": length, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
 
 
@@ -323,7 +403,7 @@ def check_extend_production(device, seed: int = 12) -> dict:
     import numpy as np
     import torch
 
-    from phylonium_tpu.data.sequence import revcomp
+    from phylonium_tpu_torch.data.sequence import revcomp
     from phylonium_tpu_torch.ops import anchor_extend
 
     rng = np.random.default_rng(seed)
@@ -355,12 +435,18 @@ def check_extend_production(device, seed: int = 12) -> dict:
         plain_ms = time_ms(lambda: anchor_extend._plain(x, y, jobs_dev, CHUNK), reps=5)
         jobs = len(oa)
         gbp_s = jobs * CHUNK / (ms * 1e-3) / 1e9
+        # the text spans the jobs read, each byte once (the micro's jobs
+        # overlap), the job records read, and CHUNK bits a job written
+        read = (span_bytes(oa, la, CHUNK) + span_bytes(ob, lb, CHUNK)
+                + jobs_dev.numel() * jobs_dev.element_size())
+        bound_ms, bound_by = bound(read + jobs * CHUNK / 8)
         print(f"  extend production {name} {jobs} x {CHUNK}: kernel == plain; "
               f"kernel {ms:.4f} ms ({gbp_s:.1f} Gbp/s, "
               f"{2 * jobs * CHUNK / (ms * 1e-3) / 1e9:.1f} GB/s of text read), "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        out[name] = {"jobs": jobs, "ms": ms, "plain_ms": plain_ms,
-                     "gbp_s": gbp_s, "max_abs_err": err}
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        out[name] = {"jobs": jobs, "ms": ms, "plain_ms": plain_ms, "gbp_s": gbp_s,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
     return out
 
 
@@ -606,12 +692,12 @@ def mapped_group(rows: int, length: int, seed: int):
     the native mapper: (queries, homologies, ref_len)."""
     import numpy as np
 
-    from phylonium_tpu.config import RunConfig
-    from phylonium_tpu.core.anchor_stats import min_anchor_length
-    from phylonium_tpu.core.map_native import map_batch_native
-    from phylonium_tpu.data.sequence import Sequence, gc_content
-    from phylonium_tpu.index.esa import ESAIndex
-    from phylonium_tpu.utils.progress import ProgressBar
+    from phylonium_tpu_torch.config import RunConfig
+    from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
+    from phylonium_tpu_torch.core.map_native import map_batch_native
+    from phylonium_tpu_torch.data.sequence import Sequence, gc_content
+    from phylonium_tpu_torch.index.esa import ESAIndex
+    from phylonium_tpu_torch.utils.progress import ProgressBar
 
     queries = [np.frombuffer(b"!".join(c), np.uint8)
                for c in eco29_panel(rows, length, seed)]
@@ -630,8 +716,8 @@ def check_build_production(device, rows: int, length: int, seed: int) -> dict:
     mapped group, with the host prep, copy, kernel and plain times."""
     import torch
 
-    from phylonium_tpu.core.pileup import build_pileup
-    from phylonium_tpu.ops.shapes import pack_states
+    from phylonium_tpu_torch.core.pileup import build_pileup
+    from phylonium_tpu_torch.ops.shapes import pack_states
     from phylonium_tpu_torch.ops import pileup_device
     from phylonium_tpu_torch.ops.states import packed_width
 
@@ -657,16 +743,21 @@ def check_build_production(device, rows: int, length: int, seed: int) -> dict:
     plain_ms = time_ms(lambda: pileup_device._plain(words, intervals, overlay, ref_len, plain))
     written = rows * width
     gb_s = written / (ms * 1e-3) / 1e9
+    # the group's codes, records and overlay read once, the rows written
+    read = sum(x.numel() * x.element_size() for x in t)
+    bound_ms, bound_by = bound(read + written)
     print(
         f"  build production {rows} x {length}: kernel == plain == host pileup; "
         f"{intervals.shape[1]} records a row (max), {overlay[1].numel()} overlay "
         f"entries, {4 * words.numel()} bytes of 2-bit codes; kernel {ms:.4f} ms "
         f"({written} bytes written, {gb_s:.1f} GB/s), plain {plain_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}); "
         f"host prep {prep_ms:.3f} ms, pinned copy to the card {copy_ms:.3f} ms",
         flush=True,
     )
     return {"rows": rows, "length": length, "ms": ms, "plain_ms": plain_ms,
-            "gb_s": gb_s, "max_abs_err": err}
+            "gb_s": gb_s, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}
 
 
 @contextlib.contextmanager
@@ -699,7 +790,7 @@ def zero_counts() -> None:
 def end_to_end_streamed(device_name: str, n: int = 116, length: int = 5_000_000) -> dict:
     """The 116 x 5 Mbp panel streamed and serial through the port's CLI,
     in the order serial, streamed, streamed, serial; byte for byte."""
-    from phylonium_tpu.core.stream import effective_group_rows
+    from phylonium_tpu_torch.core.stream import effective_group_rows
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
     from phylonium_tpu_torch.ops import pair_count, pileup_device
 
@@ -735,15 +826,16 @@ def end_to_end_streamed(device_name: str, n: int = 116, length: int = 5_000_000)
         c = r["counts"]
         want_build = groups if r["mode"] == "streamed" else 0
         if (c["build_launches"] != want_build or c["build_plain"]
-                or c["count_launches"] != 1 or c["count_plain"]
+                or c["count_launches"] != pair_count.LAUNCHES_PER_CALL or c["count_plain"]
                 or r["groups"] != want_build):
             raise AssertionError(
                 f"{r['mode']} run: {c}, {r['groups']} groups; expected "
-                f"{want_build} build launches, 0 plain calls, 1 count launch"
+                f"{want_build} build launches, 0 plain calls, one count call"
             )
     print(f"  streamed e2e {n} x {length}: byte-identical to the serial run; "
           f"{groups} groups of {effective_group_rows(n)}, {groups} build "
-          "launches, 0 build plain calls, 1 pair-count launch each", flush=True)
+          f"launches, 0 build plain calls, {pair_count.LAUNCHES_PER_CALL} "
+          "pair-count launches (one call) each", flush=True)
     for r in runs:
         print(f"  {r['mode']:8s} wall {r['wall']:.3f} s, phases "
               f"{json.dumps(r['timings'])}", flush=True)
@@ -821,7 +913,8 @@ def run_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 600) 
 def end_to_end_lowmem(device_name: str, n: int = 1000, length: int = 1_000_000) -> dict:
     """The 1000 x 1 Mbp panel through the low-memory pipeline and the
     serial one, each in a child process; byte for byte, peak RSS of each."""
-    from phylonium_tpu.core.lowmem import group_rows_for
+    from phylonium_tpu_torch.core.lowmem import group_rows_for
+    from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
 
     group = group_rows_for(n, length)
     groups = -(-n // group)
@@ -841,9 +934,9 @@ def end_to_end_lowmem(device_name: str, n: int = 1000, length: int = 1_000_000) 
             or info["build_kernel_launches"] != groups
             or info["stream_groups"] != groups
             or info["build_plain_calls"] or info["plain_calls"]
-            or info["kernel_launches"] != 1):
+            or info["kernel_launches"] != LAUNCHES_PER_CALL):
         raise AssertionError(f"the low-memory run was not device-carried: {info}")
-    if "lowmem" in serial["info"] or serial["info"]["kernel_launches"] != 1:
+    if "lowmem" in serial["info"] or serial["info"]["kernel_launches"] != LAUNCHES_PER_CALL:
         raise AssertionError(f"the serial run took another path: {serial['info']}")
     print(f"  low-memory e2e {n} x {length}: byte-identical to the serial run; "
           f"{groups} groups of {group}, {groups} build launches, 0 plain calls, "
@@ -938,9 +1031,16 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": eco["ms"],
         "plain_ms": eco["plain_ms"],
+        "bound_ms": eco["bound_ms"],
+        "bound_by": eco["bound_by"],
+        "library_ms": eco["library_ms"],
+        "library": "torch._int_mm on onehot_operands",
         "shape": "29 x 5000000",
         "ms_600x1000000": wide["ms"],
         "plain_ms_600x1000000": wide["plain_ms"],
+        "bound_ms_600x1000000": wide["bound_ms"],
+        "bound_by_600x1000000": wide["bound_by"],
+        "library_ms_600x1000000": wide["library_ms"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq",
@@ -952,6 +1052,9 @@ def main() -> int:
         "max_abs_err": extend_worst,
         "ms": ext["micro"]["ms"],
         "plain_ms": ext["micro"]["plain_ms"],
+        "bound_ms": ext["micro"]["bound_ms"],
+        "bound_by": ext["micro"]["bound_by"],
+        "library_ms": None,
         "shape": f"128 x {CHUNK}",
         "gbp_s": ext["micro"]["gbp_s"],
         f"ms_8x{CHUNK}": ext["hybrid"]["ms"],
@@ -967,6 +1070,9 @@ def main() -> int:
         "max_abs_err": build_worst,
         "ms": streamed_group["ms"],
         "plain_ms": streamed_group["plain_ms"],
+        "bound_ms": streamed_group["bound_ms"],
+        "bound_by": streamed_group["bound_by"],
+        "library_ms": None,
         "shape": "29 x 5000000",
         "gb_s": streamed_group["gb_s"],
         "ms_128x1000000": lowmem_group["ms"],

@@ -5,8 +5,9 @@
     result = distance_matrix(["a.fasta", "b.fasta"], device="cuda")
     result.distances        # [N, N] float64 (jc by default)
 
-It mirrors ``phylonium_tpu.api.distance_matrix`` and returns the same
-``DistanceResult``; the pair count runs on ``device``. Like the JAX
+It mirrors ``phylonium_tpu.api.distance_matrix``; ``DistanceResult`` and
+``_as_sequences`` are a copy of that module's (phylonium_tpu/api.py), which
+the port carries instead of importing. The pair count runs on ``device``. Like the JAX
 API it maps with the default backend (native C++ on the host): hybrid
 mapping, whose bitmaps also run on the device, is the CLI's
 ``--map-backend hybrid``.
@@ -14,13 +15,53 @@ mapping, whose bitmaps also run on the device, is the CLI's
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 
-from phylonium_tpu.api import DistanceResult, _as_sequences
-from phylonium_tpu.core.reference_pick import pick_first_pass, pick_second_pass
-from phylonium_tpu.io.phylip import estimate
 from phylonium_tpu_torch.config import TorchRunConfig
 from phylonium_tpu_torch.core.pipeline import process
+from phylonium_tpu_torch.core.reference_pick import pick_first_pass, pick_second_pass
+from phylonium_tpu_torch.data.sequence import Sequence, filter_nucl, join
+from phylonium_tpu_torch.io.fasta import read_genome
+from phylonium_tpu_torch.io.phylip import estimate
+from phylonium_tpu_torch.model.evo import EvoCounts
+
+
+@dataclass
+class DistanceResult:
+    """Outcome of one pipeline run."""
+
+    names: list[str]
+    distances: np.ndarray  # [N, N] float64, diagonal 0
+    counts: EvoCounts  # substitutions / homologs matrices
+    reference_index: int  # which genome anchored the run
+    lengths: np.ndarray  # filtered genome lengths
+    extras: dict = field(default_factory=dict)
+
+    @property
+    def reference_name(self) -> str:
+        return self.names[self.reference_index]
+
+    def coverage(self) -> np.ndarray:
+        """Per-pair coverage (homologs / row-genome length)."""
+        return self.counts.coverage(self.lengths)
+
+
+def _as_sequences(genomes) -> list[Sequence]:
+    seqs: list[Sequence] = []
+    for g in genomes:
+        if isinstance(g, Sequence):
+            seqs.append(g)
+        elif isinstance(g, str):
+            # one FASTA file = one genome; contigs join with '!'
+            seqs.append(join(read_genome(g)))
+        else:
+            name, data = g
+            if isinstance(data, str):
+                data = data.encode()
+            seqs.append(Sequence(str(name), filter_nucl(data)))
+    return seqs
 
 
 def distance_matrix(
@@ -59,7 +100,7 @@ def distance_matrix(
     cfg.count_backend = count_backend
     cfg.two_pass = two_pass
     if threads:
-        from phylonium_tpu.native import set_threads
+        from phylonium_tpu_torch.native import set_threads
 
         set_threads(threads)
 

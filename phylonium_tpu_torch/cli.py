@@ -1,7 +1,6 @@
 """Command-line entry point of the torch port.
 
-The flags are the JAX package's (phylonium_tpu/cli.py, parsed by its
-``parse_args``) plus ``--device``, which names the torch device of the
+The flags are the JAX package's (phylonium_tpu/cli.py) plus ``--device``, which names the torch device of the
 pair count, of hybrid mapping's diagonal bitmaps and of the streamed and
 low-memory paths' pileup build. The run is the JAX CLI's: read the FASTA
 files (2-bit compacted when the low-memory path is predicted), pick the
@@ -10,6 +9,11 @@ streamed and low-memory paths are reached through the JAX package's
 environment switches (``PHYLONIUM_TPU_STREAM``,
 ``PHYLONIUM_TPU_STREAM_GROUP``, ``PHYLONIUM_TPU_LOWMEM``,
 ``PHYLONIUM_TPU_LOWMEM_BYTES``); the port adds no flag for them.
+
+``parse_args``, ``cleanup_names``, ``usage`` and ``version`` and their
+helpers are a copy of the JAX package's (phylonium_tpu/cli.py:73-353),
+which the port carries instead of importing; their messages and the usage
+text name the port, and ``--version`` prints the port's version.
 """
 
 from __future__ import annotations
@@ -21,15 +25,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from phylonium_tpu.cli import cleanup_names, parse_args
-from phylonium_tpu.core.lowmem import should_lowmem
-from phylonium_tpu.core.reference_pick import pick_first_pass, pick_second_pass
-from phylonium_tpu.data.sequence import join
-from phylonium_tpu.io.fasta import read_genome
-from phylonium_tpu.io.phylip import print_matrix
 from phylonium_tpu_torch import __version__
 from phylonium_tpu_torch.config import PROG, ConfigError, TorchRunConfig
+from phylonium_tpu_torch.core.lowmem import should_lowmem
 from phylonium_tpu_torch.core.pipeline import process, refuse_unported
+from phylonium_tpu_torch.core.reference_pick import pick_first_pass, pick_second_pass
+from phylonium_tpu_torch.data.sequence import join
+from phylonium_tpu_torch.io.fasta import read_genome
+from phylonium_tpu_torch.io.phylip import print_matrix
 from phylonium_tpu_torch.utils.platform import resolve_device
 
 USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
@@ -58,6 +61,285 @@ Options:
   -h, --help           This text
       --version        Version information
 """
+
+
+def _strtoul10(val: str) -> int | None:
+    """glibc strtoul(s, &end, 10) with the reference's *end=='\\0' check:
+    optional leading whitespace and sign, base-10 digits, nothing after.
+    A negative value WRAPS mod 2^64; digits beyond ULONG_MAX are ERANGE
+    (None).  Numeric flags (-b, -t) must share these exact semantics
+    (src/phylonium.cxx:166-199) — e.g. '-b -1' means 2^64-1 matrices."""
+    import re
+
+    m = re.match(r"[ \t\n\r\f\v]*([+-])?([0-9]+)\Z", val)
+    if not m:
+        return None
+    digits = int(m.group(2))
+    if digits > 0xFFFFFFFFFFFFFFFF:
+        return None
+    return (-digits if m.group(1) == "-" else digits) % (1 << 64)
+
+
+def usage(status: int) -> "NoReturn":  # noqa: F821
+    out = sys.stdout if status == 0 else sys.stderr
+    out.write(USAGE)
+    sys.exit(status)
+
+
+def version() -> "NoReturn":  # noqa: F821
+    print(f"{PROG} {__version__}")
+    sys.exit(0)
+
+
+def cleanup_names(reference_name: str, file_names: list[str]) -> list[str]:
+    """Add the reference, sort, dedup (src/phylonium.cxx:384-391)."""
+    file_names = file_names + [reference_name]
+    return sorted(set(file_names))
+
+
+def _expand_bundles(argv: list[str]) -> list[str]:
+    """getopt-style short-option bundling: -2v == -2 -v, -b5 == -b 5.
+
+    Options taking a value (b, p, r, t) consume the rest of the token.
+    """
+    value_opts = "bprt"
+    out: list[str] = []
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "--":
+            out.extend(argv[i:])
+            break
+        if len(arg) > 2 and arg[0] == "-" and arg[1] != "-":
+            k = 1
+            while k < len(arg):
+                c = arg[k]
+                out.append(f"-{c}")
+                if c in value_opts:
+                    rest = arg[k + 1 :]
+                    if rest:
+                        out.append(rest)
+                    break
+                k += 1
+        else:
+            out.append(arg)
+        i += 1
+    return out
+
+
+# every long option, for getopt_long-style unambiguous-prefix matching
+_LONG_OPTS = (
+    "2pass", "bootstrap", "complete-deletion", "distance", "help",
+    "progress", "threads", "verbose", "version", "esa-backend",
+    "count-backend", "map-backend", "mesh", "checkpoint", "profile",
+)
+
+
+def _canonical_long(arg: str) -> str:
+    """Resolve '--boot' to '--bootstrap' like getopt_long does; exact
+    names win, ambiguous or unknown prefixes pass through (and fail
+    downstream like any unknown option)."""
+    name, eq, value = arg[2:].partition("=")
+    if name in _LONG_OPTS:
+        return arg
+    hits = [o for o in _LONG_OPTS if o.startswith(name)] if name else []
+    if len(hits) == 1:
+        return f"--{hits[0]}{eq}{value}"
+    return arg
+
+
+def parse_args(argv: list[str]) -> tuple[TorchRunConfig, list[str]]:
+    cfg = TorchRunConfig()
+    files: list[str] = []
+    argv = _expand_bundles(argv)
+    canon: list[str] = []
+    seen_dashes = False
+    for a in argv:
+        seen_dashes = seen_dashes or a == "--"
+        if not seen_dashes and a.startswith("--"):
+            a = _canonical_long(a)
+        canon.append(a)
+    argv = canon
+    i = 0
+
+    def take_value(flag: str) -> str:
+        nonlocal i
+        i += 1
+        if i >= len(argv):
+            usage(1)
+        return argv[i]
+
+    want_version = False
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "--":
+            files.extend(argv[i + 1 :])
+            break
+        elif arg in ("-2", "--2pass"):
+            cfg.two_pass = True
+        elif arg == "-b" or arg == "--bootstrap" or arg.startswith("--bootstrap="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            bootstrap = _strtoul10(val)
+            if bootstrap:  # junk/ERANGE (None) and 0 both soft-error
+                cfg.bootstrap = bootstrap - 1
+            else:
+                cfg.soft_error(
+                    f"Expected a positive number for -b argument, but "
+                    f"'{val}' was given. Ignoring -b argument."
+                )
+        elif arg == "--complete-deletion":
+            cfg.complete_deletion = True
+        elif arg == "--distance" or arg.startswith("--distance="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            low = val.lower()
+            if low in ("raw", "jc", "ani"):
+                # sticky bits, reference semantics: repeats OR together,
+                # 'jc' sets nothing; estimator precedence raw > ani > jc
+                if low == "raw":
+                    cfg.dist_raw = True
+                elif low == "ani":
+                    cfg.dist_ani = True
+                cfg.distance = (
+                    "raw" if cfg.dist_raw
+                    else "ani" if cfg.dist_ani
+                    else "jc"
+                )
+            else:
+                cfg.soft_error(
+                    f"ignoring argument for --distance '{val}' expected "
+                    "one of 'raw', 'jc', or 'ani'"
+                )
+        elif arg in ("-h", "--help"):
+            usage(0)
+        elif arg == "-p":
+            cfg.print_positions = True
+            cfg.complete_deletion = True
+            cfg.refpos_file_name = take_value(arg)
+        elif arg == "--progress" or arg.startswith("--progress="):
+            val = arg.split("=", 1)[1] if "=" in arg else "always"
+            low = val.lower()
+            if low in ("always", "auto", "never"):
+                cfg.progress = low
+            else:
+                cfg.warn(
+                    f"invalid argument to --progress '{val}'. Expected one "
+                    "of 'auto', 'always', or 'never'."
+                )
+        elif arg == "-r":
+            cfg.reference_name = take_value(arg)
+        elif arg in ("-t", "--threads") or arg.startswith("--threads="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            threads = _strtoul10(val)
+            if threads is None:
+                cfg.warn(
+                    f"Expected a number for -t argument, but '{val}' was "
+                    "given. Ignoring -t argument."
+                )
+            else:
+                from phylonium_tpu_torch.native import num_procs
+
+                if threads > num_procs():
+                    # reference wording verbatim, typo included
+                    # (src/phylonium.cxx:179-183): a wrapped negative
+                    # lands here with its mod-2^64 value
+                    cfg.warn(
+                        "The number of threads to be used, is greater "
+                        "then the number of available processors; "
+                        f"Ignoring -t {threads} argument."
+                    )
+                else:
+                    cfg.threads = threads
+        elif arg in ("-v", "--verbose"):
+            cfg.verbose += 1
+        elif arg == "--version":
+            want_version = True
+        elif arg == "--esa-backend" or arg.startswith("--esa-backend="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            if val in ("auto", "native", "numpy"):
+                cfg.esa_backend = val
+            else:
+                cfg.soft_error(
+                    f"ignoring argument for --esa-backend '{val}' expected "
+                    "one of 'auto', 'native', or 'numpy'"
+                )
+        elif arg == "--count-backend" or arg.startswith("--count-backend="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            if val in ("auto", "pallas", "device", "host", "numpy"):
+                cfg.count_backend = val
+            else:
+                cfg.soft_error(
+                    f"ignoring argument for --count-backend '{val}' "
+                    "expected one of 'auto', 'pallas', 'device', 'host', "
+                    "or 'numpy'"
+                )
+        elif arg == "--mesh" or arg.startswith("--mesh="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            parts = val.split(",")
+            if all(p.isdigit() and int(p) > 0 for p in parts) and len(
+                parts
+            ) in (1, 2):
+                cfg.mesh = val
+            else:
+                cfg.soft_error(
+                    f"ignoring argument for --mesh '{val}' expected "
+                    "'R,C' with positive integers"
+                )
+        elif arg == "--map-backend" or arg.startswith("--map-backend="):
+            val = arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            if val in ("auto", "native", "python", "hybrid"):
+                cfg.map_backend = val
+            else:
+                cfg.soft_error(
+                    f"ignoring argument for --map-backend '{val}' expected "
+                    "one of 'auto', 'native', 'python', or 'hybrid'"
+                )
+        elif arg == "--checkpoint" or arg.startswith("--checkpoint="):
+            cfg.checkpoint_dir = (
+                arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            )
+        elif arg == "--profile" or arg.startswith("--profile="):
+            cfg.profile_dir = (
+                arg.split("=", 1)[1] if "=" in arg else take_value(arg)
+            )
+        elif arg.startswith("--"):
+            # getopt_long's diagnostic line precedes the usage text;
+            # a prefix matching several long options gets the
+            # "ambiguous" form (our extra options can make a prefix
+            # ambiguous that is unique in the reference's table —
+            # inherent to extending the surface)
+            name = arg[2:].partition("=")[0]
+            hits = (
+                [o for o in _LONG_OPTS if o.startswith(name)]
+                if name else []
+            )
+            if len(hits) > 1:
+                poss = " ".join(f"'--{o}'" for o in hits)
+                print(
+                    f"{PROG}: option '{arg}' is ambiguous; "
+                    f"possibilities: {poss}",
+                    file=sys.stderr,
+                )
+            else:
+                print(
+                    f"{PROG}: unrecognized option '{arg}'",
+                    file=sys.stderr,
+                )
+            usage(1)
+        elif arg.startswith("-") and arg != "-":
+            # bundles were pre-split, so an unknown short is one char
+            print(
+                f"{PROG}: invalid option -- '{arg[1:]}'", file=sys.stderr
+            )
+            usage(1)
+        else:
+            files.append(arg)
+        i += 1
+
+    if want_version:
+        version()
+
+    return cfg, files
+
 
 
 def _split_device(argv: list[str]) -> tuple[str, list[str]] | None:
@@ -129,16 +411,8 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write(USAGE)
         return 1
     device, argv = split
-    head = argv[: argv.index("--")] if "--" in argv else argv
-    if "-h" in head or "--help" in head:
-        sys.stdout.write(USAGE)
-        return 0
-    if "--version" in head:
-        print(f"{PROG} {__version__}")
-        return 0
-
-    base_cfg, file_names = parse_args(argv)
-    cfg = TorchRunConfig.from_run_config(base_cfg, device=device)
+    cfg, file_names = parse_args(argv)
+    cfg.device = device
 
     try:
         refuse_unported(cfg)
@@ -164,7 +438,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     if cfg.threads:
-        from phylonium_tpu.native import num_procs, set_threads
+        from phylonium_tpu_torch.native import num_procs, set_threads
 
         if cfg.threads > num_procs():
             cfg.warn(

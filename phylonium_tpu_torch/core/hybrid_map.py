@@ -2,7 +2,9 @@
 
 The port of the JAX package's ``hybrid_map_queries``
 (phylonium_tpu/core/hybrid_map.py:243-388). The chain state machine,
-``_Machine``, is jax-free host code and is imported as it is: it walks
+``_Machine``, with ``DEFAULT_CHUNK`` and ``_TILE``, is a copy of that
+module's host code (:37-241), which the port carries instead of
+importing (exact oracle semantics, src/process.cxx:245-295): it walks
 each query's anchor chain and blocks whenever it needs the mismatch
 positions of one diagonal, ``request = (d, start)``. This module runs
 every machine until it blocks, answers all blocked machines with one
@@ -23,11 +25,217 @@ import time
 import numpy as np
 import torch
 
-from phylonium_tpu.core.homology import Homology
-from phylonium_tpu.core.hybrid_map import _TILE, DEFAULT_CHUNK, _Machine
-from phylonium_tpu.index.esa import ESAIndex
 from phylonium_tpu_torch.config import ConfigError
+from phylonium_tpu_torch.core.homology import Homology
+from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.ops import anchor_extend
+
+# query-positions fetched per (query, diagonal) device request
+DEFAULT_CHUNK = 1 << 19
+_TILE = 2048
+
+
+class _NeedBitmap(Exception):
+    """Raised inside a machine when it blocks on diagonal data."""
+
+
+class _Machine:
+    """Chain state machine for one query (exact oracle semantics)."""
+
+    __slots__ = (
+        "ref", "q", "qlen", "threshold", "border", "SA", "hv",
+        "prev_q", "prev_s", "prev_len", "merged",
+        "cursor", "open_seg", "diag", "mm", "fs", "fe",
+        "request", "done",
+    )
+
+    def __init__(self, ref: ESAIndex, q: np.ndarray, threshold: int):
+        self.ref = ref
+        self.q = q
+        self.qlen = len(q)
+        self.threshold = threshold
+        self.border = ref.size // 2
+        self.SA = ref.SA
+        self.hv: list[Homology] = []
+        self.prev_q = 0
+        self.prev_s = 0
+        self.prev_len = 0
+        self.merged = False
+        self.cursor = 0
+        self.open_seg = Homology.at(0, 0)
+        # cached mismatch positions for one diagonal, covering [fs, fe)
+        self.diag: int | None = None
+        self.mm: np.ndarray | None = None
+        self.fs = 0
+        self.fe = 0
+        self.request: tuple[int, int] | None = None
+        self.done = False
+
+    # -- diagonal bitmap cache ------------------------------------------
+
+    def _next_mm(self, d: int, p: int) -> int:
+        """First mismatch position >= p on diagonal d (query coords)."""
+        if self.diag != d or p < self.fs or p >= self.fe:
+            self.request = (d, p)
+            raise _NeedBitmap
+        i = int(np.searchsorted(self.mm, p))
+        if i == len(self.mm):
+            # run extends past coverage; extend it (fe <= qlen here:
+            # covered fetches always mark position qlen as a mismatch)
+            self.request = (d, self.fe)
+            raise _NeedBitmap
+        return int(self.mm[i])
+
+    def feed(self, row: np.ndarray) -> None:
+        d, start = self.request
+        mm = (start + np.flatnonzero(row)).astype(np.int64)
+        if d == self.diag and start == self.fe:
+            self.mm = np.concatenate([self.mm, mm])
+        else:
+            self.diag = d
+            self.mm = mm
+            self.fs = start
+        self.fe = start + len(row)
+        self.request = None
+
+    # -- chain events (oracle semantics, src/process.cxx:245-295) -------
+
+    def _accept_seed(self, seed_s: int, seed_len: int) -> None:
+        end_S = self.prev_s + self.prev_len
+        end_Q = self.prev_q + self.prev_len
+        if (
+            seed_s > end_S
+            and self.cursor - end_Q == seed_s - end_S
+            and (seed_s < self.border) == (self.prev_s < self.border)
+        ):
+            self.open_seg.extend(self.cursor - end_Q + seed_len)
+            self.merged = True
+        else:
+            if self.merged or self.prev_len // 2 >= self.threshold:
+                self.open_seg.reverse_eh(self.border)
+                self.hv.append(self.open_seg)
+            self.open_seg = Homology.at(
+                seed_s, self.cursor, seed_len
+            )
+            self.merged = False
+        self.prev_q = self.cursor
+        self.prev_s = seed_s
+        self.prev_len = seed_len
+
+    def _probe_diagonal(self):
+        """Lucky anchor via the diagonal bitmap; None = failed/inapplicable."""
+        advance = self.cursor - self.prev_q
+        gap = advance - self.prev_len
+        diag_s = self.prev_s + advance
+        if diag_s >= self.ref.size or gap > self.threshold:
+            return None
+        d = self.prev_s - self.prev_q
+        nm = self._next_mm(d, self.cursor)
+        seed_len = nm - self.cursor
+        if seed_len >= self.threshold:
+            return diag_s, seed_len
+        return None
+
+    def _consume_runs(self) -> None:
+        """Batch-apply consecutive lucky successes along the diagonal.
+
+        After any success, the next probe is at ``last end + 1`` with
+        gap 1; its LCP is the gap to the next mismatch.  All such steps
+        until the first sub-threshold run are right anchors (except a
+        single possible '#'-border crossing, handled as the left anchor
+        it is) — applied here without per-step Python/device work.
+        """
+        thr = self.threshold
+        while True:
+            p0 = self.cursor
+            if p0 >= self.qlen:
+                return
+            d = self.prev_s - self.prev_q
+            if d + p0 >= self.ref.size:
+                return
+            self._next_mm(d, p0)  # ensure coverage (may raise)
+            i0 = int(np.searchsorted(self.mm, p0))
+            M = self.mm[i0:]
+            if len(M) == 0:
+                return  # re-handled via _next_mm on the next diagonal probe
+            p_arr = np.empty(len(M), np.int64)
+            p_arr[0] = p0
+            p_arr[1:] = M[:-1] + 1
+            runs = M - p_arr
+            ok = (
+                (runs >= thr)
+                & (d + p_arr < self.ref.size)
+                & (p_arr < self.qlen)
+            )
+            n_ok = int(np.argmin(ok)) if not ok.all() else len(ok)
+            if n_ok == 0:
+                return
+            # '#'-border crossing: s-positions increase, so the side
+            # flips at most once; steps before the flip are right
+            # anchors, the flip step is a left anchor.
+            side0 = self.prev_s < self.border
+            sides = (d + p_arr[:n_ok]) < self.border
+            flip = (
+                int(np.argmax(sides != side0))
+                if bool((sides != side0).any())
+                else n_ok
+            )
+            b = min(n_ok, flip) if flip > 0 else 0
+            if b > 0:
+                # right-anchor batch [0, b)
+                end_Q = self.prev_q + self.prev_len
+                self.open_seg.extend(int(M[b - 1]) - end_Q)
+                self.merged = True
+                self.prev_q = int(p_arr[b - 1])
+                self.prev_s = d + int(p_arr[b - 1])
+                self.prev_len = int(runs[b - 1])
+                self.cursor = int(M[b - 1]) + 1
+            if b < n_ok:
+                # the border-crossing step: left anchor
+                self.cursor = int(p_arr[b])
+                self._accept_seed(d + int(p_arr[b]), int(runs[b]))
+                self.cursor += int(runs[b]) + 1
+            elif b < len(ok):
+                return  # next step's run is sub-threshold -> slow path
+            # else: coverage exhausted; loop refetches via _next_mm
+
+    def _finish(self) -> None:
+        if self.prev_len >= self.qlen:
+            # identical-sequence special case (src/process.cxx:284-287)
+            self.open_seg = Homology.at(self.prev_s, 0, self.qlen)
+        if self.merged or self.prev_len // 2 >= self.threshold:
+            self.open_seg.reverse_eh(self.border)
+            self.hv.append(self.open_seg)
+
+    def run(self) -> bool:
+        """Advance until finished (True) or blocked on a bitmap (False)."""
+        if self.done:
+            return True
+        try:
+            while self.cursor < self.qlen:
+                res = self._probe_diagonal()
+                if res is not None:
+                    ts, tl = res
+                    self._accept_seed(ts, tl)
+                    self.cursor += tl + 1
+                    self._consume_runs()
+                else:
+                    l, i, j = self.ref.longest_match(
+                        self.q, self.cursor, self.qlen - self.cursor
+                    )
+                    tl = max(l, 0)
+                    if i == j and tl >= self.threshold:
+                        self._accept_seed(int(self.SA[i]), tl)
+                        self.cursor += tl + 1
+                        self._consume_runs()
+                    else:
+                        self.cursor += tl + 1
+            self._finish()
+            self.done = True
+            return True
+        except _NeedBitmap:
+            return False
+
 
 
 def _text_on(text: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """The pipeline: index -> map -> pileup -> all-pairs counts.
 
-It follows the JAX package's ``process`` (phylonium_tpu/core/pipeline.py)
-and imports every host step from there: the suffix index, the native and
-Python mappers, complete deletion, the pileup build and the ``-p``
-position file are jax-free host code (C++ in ``native/`` and numpy).
-What runs on the torch device the configuration names:
+It follows the JAX package's ``process`` (phylonium_tpu/core/pipeline.py).
+Every host step is the port's own copy of that package's host code: the
+suffix index (index/), the native and Python mappers (native/,
+core/anchors.py), complete deletion, the pileup build and the ``-p``
+position file (C++ in ``native/`` and numpy). What runs on the torch
+device the configuration names:
 
 - the all-pairs count, once, through ops/pair_count.py;
 - hybrid mapping's diagonal bitmaps (``--map-backend hybrid``), through
@@ -32,24 +33,24 @@ import time
 
 import numpy as np
 
-from phylonium_tpu.core.anchor_stats import min_anchor_length
-from phylonium_tpu.core.complete_deletion import complete_delete
-from phylonium_tpu.core.filter import filter_overlaps_max
-from phylonium_tpu.core.homology import Homology
-from phylonium_tpu.core.lowmem import should_lowmem
-from phylonium_tpu.core.pileup import build_pileup
-from phylonium_tpu.core.pipeline import map_queries as host_map_queries
-from phylonium_tpu.core.segsites import write_refpos
-from phylonium_tpu.data.sequence import Sequence, gc_content
-from phylonium_tpu.index.esa import ESAIndex
-from phylonium_tpu.model.evo import EvoCounts
-from phylonium_tpu.utils.progress import ProgressBar
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
+from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
+from phylonium_tpu_torch.core.anchors import anchor_homologies
+from phylonium_tpu_torch.core.complete_deletion import complete_delete
+from phylonium_tpu_torch.core.filter import filter_overlaps_max
+from phylonium_tpu_torch.core.homology import Homology
 from phylonium_tpu_torch.core.hybrid_map import hybrid_map_queries
-from phylonium_tpu_torch.core.lowmem import map_count_lowmem
+from phylonium_tpu_torch.core.lowmem import map_count_lowmem, should_lowmem
+from phylonium_tpu_torch.core.map_native import map_batch_native
+from phylonium_tpu_torch.core.pileup import build_pileup
+from phylonium_tpu_torch.core.segsites import write_refpos
 from phylonium_tpu_torch.core.stream import DeviceRowFeeder, map_pileup_streamed
+from phylonium_tpu_torch.data.sequence import Sequence, gc_content
+from phylonium_tpu_torch.index.esa import ESAIndex
+from phylonium_tpu_torch.model.evo import EvoCounts
 from phylonium_tpu_torch.ops import anchor_extend, pair_count, pileup_device
 from phylonium_tpu_torch.utils.platform import carrier, resolve_device
+from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # What the most recent process() run did: which carrier mapped the
 # queries ("cuda-kernel", "torch-cpu", "native" or "python") and which
@@ -79,33 +80,27 @@ def map_queries(
 ) -> list[list[Homology]]:
     """Anchor-map every query against the index ("Mapping" phase).
 
-    ``--map-backend hybrid`` follows the JAX package's ``map_queries``
-    (phylonium_tpu/core/pipeline.py:52-203): checkpoint reuse and save,
-    the progress bar, then sort by start and the max-chain overlap
-    filter; its bitmaps are computed on ``cfg.device``. A failure there
-    raises: nothing maps on the host in its place. Every other backend is
-    the JAX package's host mapper.
+    A copy of the JAX package's ``map_queries``
+    (phylonium_tpu/core/pipeline.py:52-203): checkpoint reuse and save, the
+    progress bar, and the native (C++/OpenMP, live per-query progress),
+    Python and hybrid branches. ``--map-backend hybrid`` computes its
+    bitmaps on ``cfg.device`` (core/hybrid_map.py); a failure there raises,
+    and nothing maps on the host in its place. Left out: the multi-host
+    split of the queries, which goes with the mesh, and the fallback from
+    a transient TPU error to the host mapper.
     """
-    if cfg.map_backend != "hybrid":
-        native = cfg.map_backend == "native" or (
-            cfg.map_backend == "auto" and ref.backend_name == "native"
-        )
-        LAST_RUN_INFO["map_carrier"] = "native" if native else "python"
-        LAST_RUN_INFO["map_rounds"] = 0
-        return host_map_queries(ref, threshold, queries, cfg)
-
-    device = resolve_device(cfg.device)
-    LAST_RUN_INFO["map_carrier"] = carrier(device)
     n = len(queries)
     homologies: list[list[Homology]] = [None] * n  # type: ignore
     bar = ProgressBar(
         f"Mapping {n} sequences", n, enabled=cfg.progress_enabled
     )
+
+    # Checkpoint: reuse previously mapped queries (content-addressed).
     ckpt = None
     keys = [None] * n
     todo = list(range(n))
     if cfg.checkpoint_dir:
-        from phylonium_tpu.utils.checkpoint import (
+        from phylonium_tpu_torch.utils.checkpoint import (
             MappingCheckpoint,
             query_key,
             subject_key,
@@ -124,19 +119,54 @@ def map_queries(
     done_base = n - len(todo)
     bar.update(done_base)
 
-    stats: dict = {}
-    raw = hybrid_map_queries(
-        ref, threshold, [queries[j].as_array() for j in todo], device,
-        progress=lambda d: bar.update(done_base + d), stats=stats,
-    )
-    LAST_RUN_INFO["map_rounds"] = stats["rounds"]
-    LAST_RUN_INFO["map_split"] = {
-        "map_host": stats["host_s"], "map_device": stats["device_s"]
-    }
-    for k, j in enumerate(todo):
-        hv = raw[k]
-        hv.sort(key=lambda h: h.start())
-        homologies[j] = filter_overlaps_max(hv)
+    map_backend = cfg.map_backend
+    if map_backend == "auto":
+        map_backend = "native" if ref.backend_name == "native" else "python"
+    elif map_backend == "native" and ref.backend_name != "native":
+        raise ConfigError(
+            "--map-backend=native requires the native suffix index, but "
+            f"the '{ref.backend_name}' ESA backend is in use (pick "
+            "--esa-backend=native or another map backend)"
+        )
+    LAST_RUN_INFO["map_rounds"] = 0
+
+    if map_backend == "hybrid":
+        device = resolve_device(cfg.device)
+        LAST_RUN_INFO["map_carrier"] = carrier(device)
+        stats: dict = {}
+        raw = hybrid_map_queries(
+            ref, threshold, [queries[j].as_array() for j in todo], device,
+            progress=lambda d: bar.update(done_base + d), stats=stats,
+        )
+        LAST_RUN_INFO["map_rounds"] = stats["rounds"]
+        LAST_RUN_INFO["map_split"] = {
+            "map_host": stats["host_s"], "map_device": stats["device_s"]
+        }
+        for k, j in enumerate(todo):
+            hv = raw[k]
+            hv.sort(key=lambda h: h.start())
+            homologies[j] = filter_overlaps_max(hv)
+    elif map_backend == "native":
+        LAST_RUN_INFO["map_carrier"] = "native"
+        # the native backend maps entire batches in C++/OpenMP; the shared
+        # helper relays its atomic per-query counter to the bar
+        native_out = map_batch_native(
+            ref._native,
+            [queries[j].as_array() for j in todo],
+            threshold,
+            bar,
+            done_base,
+        )
+        for k, j in enumerate(todo):
+            homologies[j] = native_out[k]
+    else:
+        LAST_RUN_INFO["map_carrier"] = "python"
+        for k, j in enumerate(todo):
+            hv = anchor_homologies(ref, threshold, queries[j])
+            hv.sort(key=lambda h: h.start())
+            homologies[j] = filter_overlaps_max(hv)
+            bar.update(done_base + k + 1)
+
     if ckpt is not None:
         for j in todo:
             ckpt.save(keys[j], homologies[j])
@@ -149,17 +179,18 @@ def pair_counts(
 ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (substitutions, homologs), int64 [N, N].
 
-    numpy and host keep the JAX package's jax-free host counters; auto,
-    device and pallas all count on ``cfg.device`` through the port.
+    numpy and host are the host counters (the port's copies of the JAX
+    package's); auto, device and pallas all count on ``cfg.device``
+    through the port.
     """
     backend = cfg.count_backend
     if backend == "numpy":
-        from phylonium_tpu.ops.match_table import pair_counts_numpy
+        from phylonium_tpu_torch.ops.match_table import pair_counts_numpy
 
         LAST_RUN_INFO["compare_carrier"] = "numpy"
         return pair_counts_numpy(states)
     if backend == "host":
-        from phylonium_tpu.ops.bitplane_host import pair_counts_host
+        from phylonium_tpu_torch.ops.bitplane_host import pair_counts_host
 
         LAST_RUN_INFO["compare_carrier"] = "host"
         return pair_counts_host(states)

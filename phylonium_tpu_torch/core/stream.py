@@ -29,23 +29,38 @@ into a CPU panel; the tests drive the whole feeder that way.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 
 import numpy as np
 import torch
 
-from phylonium_tpu.core.homology import Homology
-from phylonium_tpu.core.map_native import map_batch_native
-from phylonium_tpu.core.stream import effective_group_rows
-from phylonium_tpu.index.esa import ESAIndex
-from phylonium_tpu.utils.progress import ProgressBar
+from phylonium_tpu_torch.core.homology import Homology
+from phylonium_tpu_torch.core.map_native import map_batch_native
+from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.ops import pair_count, pileup_device
 from phylonium_tpu_torch.ops.states import packed_width
+from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # groups waiting for the worker, beyond the one it builds; each holds its
 # genomes' bytes until it is built
 MAX_BACKLOG = 2
+
+DEFAULT_GROUP_ROWS = 128
+
+
+def effective_group_rows(n: int) -> int:
+    """Feeding-group size for an ``n``-genome panel: the 128-row default
+    capped so every panel splits into at least ~4 groups (a single group
+    would finish mapping exactly when mapping ends: nothing to overlap).
+    The 8-row floor keeps per-group fixed costs amortized.
+    ``PHYLONIUM_TPU_STREAM_GROUP`` pins an explicit size. A copy of the
+    JAX package's (phylonium_tpu/core/stream.py:41)."""
+    env = os.environ.get("PHYLONIUM_TPU_STREAM_GROUP")
+    if env:
+        return int(env)
+    return min(DEFAULT_GROUP_ROWS, max(8, -(-n // 4)))
 
 
 class DeviceRowFeeder:

@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from phylonium_tpu.core.pileup import INVALID
-from phylonium_tpu.ops.match_table import MATCH_TABLE
+from phylonium_tpu_torch.core.pileup import INVALID
+from phylonium_tpu_torch.ops.match_table import MATCH_PLANES, MATCH_TABLE
 
 # packed bytes per chunk: 2^23 states, so every float32 partial sum is an
 # integer below 2^24 and exact (0/1 operands; ops/shapes.py in the JAX
@@ -65,3 +65,42 @@ def cross_counts_reference(
         vb = pb[..., :INVALID].sum(-1)
         homs += (va @ vb.T).to(torch.int64)
     return matches, homs
+
+
+def onehot_operands(
+    a: torch.Tensor, b: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's contraction as two int8 matrices, for one product.
+
+    [Na, W] x [Nb, W] packed uint8 -> (A int8 [Na, (C + 1) L], B int8
+    [2 Nb, (C + 1) L]) with L = 2 W states a row and C = len(MATCH_PLANES)
+    classes of states that share a partner set (8):
+
+        A = [P_0 .. P_{C-1} | V]
+        B = [[Q_0 .. Q_{C-1} | 0]; [0 | V]]
+
+    where P_c = [state in class c], Q_c = [state is a partner of class c]
+    and V = [state < 10], so that ``A . B^T`` is ``[matches | homs]``
+    ([Na, 2 Nb], exact in int32 while L < 2^31). These are the kernel's
+    planes. Column order within a plane is any order shared by both sides;
+    here the low nibbles, then the high ones. ``chip_smoke.py`` times
+    ``torch._int_mm`` on these as the library yardstick of the kernel;
+    nothing in the port calls it.
+    """
+    states_a = torch.cat((a & 15, a >> 4), dim=1)
+    states_b = torch.cat((b & 15, b >> 4), dim=1)
+    na, length = states_a.shape
+    nb = states_b.shape[0]
+    planes = len(MATCH_PLANES)
+    ops_a = torch.empty((na, planes + 1, length), dtype=torch.int8, device=a.device)
+    ops_b = torch.zeros((2, nb, planes + 1, length), dtype=torch.int8, device=a.device)
+
+    def in_set(states: torch.Tensor, bits: int) -> torch.Tensor:
+        return ((bits >> states.to(torch.int32)) & 1).to(torch.int8)
+
+    for c, (members, partners) in enumerate(MATCH_PLANES.tolist()):
+        ops_a[:, c] = in_set(states_a, members)
+        ops_b[0, :, c] = in_set(states_b, partners)
+    ops_a[:, planes] = states_a < INVALID
+    ops_b[1, :, planes] = states_b < INVALID
+    return ops_a.view(na, -1), ops_b.view(2 * nb, -1)

@@ -5,8 +5,8 @@ These port the JAX package's ``pair_counts_pallas``,
 ``cross_counts_pallas`` (phylonium_tpu/ops/pallas_match.py). On the TPU
 the square block (N <= 512) and the 512-row panels (N > 512) were two
 kernels because of VMEM; the CUDA kernel (csrc/pair_count.cu) tiles its
-output into 64 x 64 blocks, so its shared memory does not grow with N and
-one symmetric launch serves every N.
+output into 128 x 128 blocks, so its shared memory does not grow with N
+and one symmetric call serves every N.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain PyTorch
 version (ops/match_matrix.py). The route follows the tensor's device and
@@ -27,6 +27,8 @@ from phylonium_tpu_torch.ops.states import ROW_ALIGN, pack_rows, to_device
 # route, since the last reset (callers set them to 0)
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+# pt_cross_counts launches the kernel twice: matches, then homologs
+LAUNCHES_PER_CALL = 2
 
 # int32 cells: a cell counts at most 2 states per packed byte
 _MAX_WIDTH = (1 << 31) // 2
@@ -102,7 +104,7 @@ def cross_counts(
     _check(a, b, symmetric)
     if a.device.type == "cuda":
         matches, homs = _launch(a, b, symmetric)
-        KERNEL_LAUNCHES += 1
+        KERNEL_LAUNCHES += LAUNCHES_PER_CALL
         return matches, homs
     if a.device.type != "cpu":
         raise ValueError(f"no pair-count route for device {a.device}")

@@ -2,8 +2,8 @@
 
 The port of the JAX package's phylonium_tpu/ops/pileup_device.py (the XLA
 program ``_build_packed`` and its wrapper ``build_packed_rows_device``).
-The host prep is the JAX package's jax-free ``ops/pileup_prep.py``,
-imported as it is: ``group_payload`` packs the group's queries into 2-bit
+The host prep is the port's copy of the JAX package's
+``ops/pileup_prep.py``: ``group_payload`` packs the group's queries into 2-bit
 codes, ``prep_intervals`` turns its homologies into (start, end, B, dir)
 records, and ``build_overlay`` lists the (row, col, state) entries that
 the 2-bit codes cannot carry. The device half is one CUDA kernel
@@ -30,9 +30,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phylonium_tpu.config import ConfigError
-from phylonium_tpu.core.pileup import INVALID, N_BASE
-from phylonium_tpu.ops.pileup_prep import (
+from phylonium_tpu_torch.config import ConfigError
+from phylonium_tpu_torch.core.pileup import INVALID, N_BASE
+from phylonium_tpu_torch.ops.pileup_prep import (
     _MAX_GROUP_BASES,
     build_overlay,
     group_payload,

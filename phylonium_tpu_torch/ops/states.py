@@ -2,7 +2,7 @@
 
 This system has no weights; its device state is the pileup, one row of
 4-bit states per genome. Rows travel split-nibble packed, exactly as the
-JAX package packs them (``phylonium_tpu.ops.shapes.pack_states``), with
+JAX package packs them (``ops/shapes.py::pack_states``), with
 the width padded to a multiple of 16 bytes so that every row starts on a
 16-byte boundary for the kernel's vector loads.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phylonium_tpu.ops.shapes import pack_states
+from phylonium_tpu_torch.ops.shapes import pack_states
 
 ROW_ALIGN = 16  # bytes: one 128-bit load
 

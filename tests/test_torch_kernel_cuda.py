@@ -50,7 +50,7 @@ def test_kernel_equals_plain(card, na, nb, length):
         keep = torch.triu if sym else (lambda t: t)
         assert torch.equal(keep(m.to(torch.int64)), keep(mr))
         assert torch.equal(keep(h.to(torch.int64)), keep(hr))
-    assert pair_count.KERNEL_LAUNCHES == launches + len(cases)
+    assert pair_count.KERNEL_LAUNCHES == launches + pair_count.LAUNCHES_PER_CALL * len(cases)
 
 
 @pytest.mark.cuda
@@ -59,3 +59,44 @@ def test_pair_counts_on_card_equal_numpy(card):
     got = pair_count.pair_counts(states, card)
     want = pair_counts_numpy(states)
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+# the tensor-core kernel's edges: one and several 16-row fragments, one
+# and several 32- and 64-row warp tiles, one and two 128-row block tiles,
+# and a panel of 600; widths of one stage, two stages, and enough stages
+# that the columns split over many blocks
+EDGE_ROWS = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 600]
+EDGE_LENGTHS = [1, 33, 31_999, 200_001]
+
+
+def _check(x, y, sym):
+    m, h = pair_count.cross_counts(x, y, symmetric=sym)
+    mr, hr = cross_counts_reference(x, y)
+    torch.cuda.synchronize()
+    keep = torch.triu if sym else (lambda t: t)
+    assert torch.equal(keep(m.to(torch.int64)), keep(mr))
+    assert torch.equal(keep(h.to(torch.int64)), keep(hr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_kernel_edges_equal_plain(card, n):
+    for length in EDGE_LENGTHS:
+        if n == 600 and length > 31_999:
+            continue  # the production phase of chip_smoke.py covers it
+        states = _states(n * 7 + length, n, length, invalid_row=n // 2)
+        other = _states(n * 11 + length, n + 7, length)
+        a = to_device(pack_rows(states), card)
+        b = to_device(pack_rows(other), card)
+        for x, y, sym in ((a, a, True), (a, b, False), (b, a, False)):
+            _check(x, y, sym)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 129])
+def test_kernel_on_a_row_slice(card, n):
+    # the streamed feeder counts a slice of a larger resident panel
+    panel = to_device(pack_rows(_states(n, n + 40, 9_999, invalid_row=3)), card)
+    rows = panel[5 : 5 + n]
+    _check(rows, rows, True)
+    _check(rows, panel[20:], False)

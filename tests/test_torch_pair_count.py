@@ -19,7 +19,8 @@ from phylonium_tpu.ops.pallas_match import (
 )
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.ops import pair_count
-from phylonium_tpu_torch.ops.match_table import PARTNER_MASK
+from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference, onehot_operands
+from phylonium_tpu_torch.ops.match_table import MATCH_PLANES, MATCH_TABLE, PARTNER_MASK
 from phylonium_tpu_torch.ops.states import pack_rows, packed_width
 from phylonium_tpu_torch.utils.platform import resolve_device
 
@@ -45,6 +46,18 @@ def test_partner_mask_matches_pallas_partners():
         assert partners == (_PARTNERS[s] if s < len(_PARTNERS) else ())
     # forward T matches the reverse '!' (the ASCII complement quirk)
     assert PARTNER_MASK[3] >> 9 & 1
+
+
+def test_match_planes_rebuild_the_match_table():
+    # each class's state and partner masks, as 0/1 vectors over states 0..10
+    bits = np.arange(11)
+    p = (MATCH_PLANES[:, :1] >> bits) & 1
+    q = (MATCH_PLANES[:, 1:] >> bits) & 1
+    assert (p.sum(0) <= 1).all()  # a state lies in at most one class
+    assert np.array_equal(p.T @ q, MATCH_TABLE)
+    # C fwd with G rev and G fwd with C rev: 8 planes, the table's rank
+    assert len(MATCH_PLANES) == 8 == np.linalg.matrix_rank(MATCH_TABLE)
+    assert sorted(np.flatnonzero(p.sum(0) == 0)) == [INVALID]
 
 
 def _pallas_cases():
@@ -139,3 +152,66 @@ def test_cross_counts_refuses_bad_inputs():
         pair_count.cross_counts(rows, rows[:, :32].contiguous())
     with pytest.raises(ValueError, match="one tensor"):
         pair_count.cross_counts(rows, rows.clone(), symmetric=True)
+
+
+def _onehot_counts(a: torch.Tensor, b: torch.Tensor):
+    ops_a, ops_b = onehot_operands(a, b)
+    product = ops_a.to(torch.int32) @ ops_b.to(torch.int32).T
+    nb = b.shape[0]
+    return product[:, :nb].to(torch.int64), product[:, nb:].to(torch.int64)
+
+
+def _every_state_pair(n_rows: int = 11) -> np.ndarray:
+    """Rows whose columns, taken two by two, hold every ordered pair of
+    states 0..10 (and the reverse pairs across row swaps)."""
+    s, t = np.meshgrid(np.arange(11), np.arange(11), indexing="ij")
+    cols = np.stack([s.ravel(), t.ravel()])  # [2, 121]
+    rows = np.concatenate([np.roll(cols, k, axis=0) for k in range(n_rows)], axis=0)
+    return rows[:n_rows].astype(np.uint8)
+
+
+@pytest.mark.parametrize(
+    "na,nb,length,symmetric",
+    [(11, 11, 121, True), (4, 4, 1, True), (6, 6, 333, True),
+     (3, 7, 1001, False), (9, 2, 64, False), (5, 5, 2047, False)],
+)
+def test_onehot_operands_equal_reference_and_pallas(na, nb, length, symmetric):
+    if length == 121:
+        a = _every_state_pair(na)
+    else:
+        a = _states(31 + length, na, length, invalid_row=na // 2)
+    b = a if symmetric else _states(32 + length, nb, length, invalid_row=0)
+    ta = torch.from_numpy(pack_rows(a))
+    tb = torch.from_numpy(pack_rows(b))
+    matches, homs = _onehot_counts(ta, tb)
+    mr, hr = cross_counts_reference(ta, tb)
+    assert torch.equal(matches, mr) and torch.equal(homs, hr)
+    if symmetric:
+        subs, h = pair_counts_pallas(a, block=128, interpret=True)
+        off = ~np.eye(na, dtype=bool)
+        assert np.array_equal(homs.numpy()[off], h[off])
+        assert np.array_equal((homs - matches).numpy()[off], subs[off])
+    else:
+        jw = -(-packed_width(length) // 128) * 128
+        jm, jh = cross_counts_pallas(
+            pack_states(a, 32, jw), pack_states(b, 32, jw), 128,
+            interpret=True, packed=True,
+        )
+        assert np.array_equal(matches.numpy(), np.asarray(jm)[:na, :nb])
+        assert np.array_equal(homs.numpy(), np.asarray(jh)[:na, :nb])
+
+
+def test_onehot_operands_shapes_and_values():
+    a = torch.from_numpy(pack_rows(_states(40, 3, 50)))
+    b = torch.from_numpy(pack_rows(_states(41, 5, 50)))
+    ops_a, ops_b = onehot_operands(a, b)
+    length = 2 * a.shape[1]
+    planes = len(MATCH_PLANES)
+    assert ops_a.dtype == ops_b.dtype == torch.int8
+    assert ops_a.shape == (3, 9 * length) and ops_b.shape == (10, 9 * length)
+    assert set(ops_a.unique().tolist()) <= {0, 1}
+    # a state lies in at most one P plane; the Q block has no V plane and
+    # the V block nothing else
+    assert int(ops_a[:, : planes * length].view(3, planes, length).sum(1).max()) <= 1
+    assert not ops_b[:5, planes * length :].any()
+    assert not ops_b[5:, : planes * length].any()

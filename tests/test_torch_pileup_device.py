@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from phylonium_tpu.config import ConfigError
+from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu.core.pileup import INVALID, build_pileup
 from phylonium_tpu.ops.pileup_device import dispatch_build_packed
 from phylonium_tpu.ops.pileup_prep import build_overlay, group_payload, prep_intervals

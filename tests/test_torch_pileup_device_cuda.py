@@ -17,7 +17,7 @@ from phylonium_tpu.core.pileup import build_pileup
 from phylonium_tpu.ops.match_table import pair_counts_numpy
 from phylonium_tpu.ops.shapes import pack_states
 from phylonium_tpu_torch.core.stream import DeviceRowFeeder
-from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops import pair_count, pileup_device
 from phylonium_tpu_torch.ops.states import packed_width
 from pileup_cases import EDGE_CASES, panel, write_fasta_panel
 
@@ -106,7 +106,7 @@ def test_streamed_and_lowmem_cli_on_card(card, tmp_path, monkeypatch):
     assert LAST_RUN_INFO["stream_groups"] == 3
     assert LAST_RUN_INFO["build_kernel_launches"] == 3
     assert LAST_RUN_INFO["build_plain_calls"] == 0
-    assert LAST_RUN_INFO["kernel_launches"] == 1
+    assert LAST_RUN_INFO["kernel_launches"] == pair_count.LAUNCHES_PER_CALL
     monkeypatch.delenv("PHYLONIUM_TPU_STREAM")
     monkeypatch.delenv("PHYLONIUM_TPU_STREAM_GROUP")
     monkeypatch.setenv("PHYLONIUM_TPU_LOWMEM", "force")
