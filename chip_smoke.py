@@ -19,10 +19,14 @@ non-zero exit and no result line:
 5. hold the diagonal-mismatch kernel against its plain PyTorch version,
    word for word, at edge shapes (lengths 1 to 2^19, unaligned offsets
    and offsets at the text end, a limit of 0, 1 and 300 jobs, identical
-   texts);
+   texts) and at the kernel's own edges of tests/extend_cases.py (offsets
+   at all 16 x 16 residues mod 16, lengths 1, 31, 32, 33 and 2^19 + 5, an
+   end inside a word, texts shorter than one 16-byte load, more jobs than
+   one grid row), each with the texts at the start of their buffers and
+   3 and 13 bytes into them;
 6. the same at its production shapes, 128 jobs x 2^19 over a 5 Mbp
    genome's doubled text and 8 jobs x 2^19 of a hybrid round, with both
-   times and the bound;
+   times and the bound of each;
 7. end to end: an eco29-shaped panel (29 genomes x 5 Mbp) through the
    port's CLI on the card, whose PHYLIP output must equal, byte for byte,
    the JAX package's CLI with host counting (a jax-free subprocess);
@@ -34,7 +38,10 @@ non-zero exit and no result line:
    for byte, at edge shapes (ref_len 1 and 2, odd and even lengths,
    records at every alignment, reverse records, separators, a row with no
    records, overlay entries on both nibbles of a byte, groups of 1 and
-   300 rows, and a write into a row slice of a larger panel);
+   300 rows, records across the kernel's tile edges and longer than a
+   tile, more records and overlay entries in a span than it stages at
+   once, records at the ends of the query codes, and a write into a row
+   slice of a larger panel);
 10. the same at its production shapes, one streamed group of the
     116 x 5 Mbp panel (29 rows) and one low-memory group of the
     1000 x 1 Mbp panel (128 rows), mapped by the native mapper, with both
@@ -133,6 +140,34 @@ def pick_host_compiler() -> str:
     raise RuntimeError("no C++ compiler builds OpenMP code:\n" + "\n".join(tried))
 
 
+def build_reference_host_library() -> str:
+    """Build the JAX package's native host library in one process.
+
+    That library is compiled in place at first use, and the reference CLI
+    first uses it from several FASTA reader threads at once: on a fresh
+    checkout each thread starts its own compiler on the same output file,
+    and one of them can load the file while another is still writing it
+    ("file too short"). Building it here first leaves the CLI nothing to
+    build. Returns the library's path.
+    """
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "from phylonium_tpu.native.build import ensure_built\n"
+         "print(ensure_built())\n"
+         "sys.exit('jax' in sys.modules)\n"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"reference host library build exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}"
+        )
+    return proc.stdout.strip()
+
+
 def random_states(rng, n: int, length: int, invalid: float = 0.2):
     """[n, length] uint8 states 0..9 with about ``invalid`` INVALID."""
     import numpy as np
@@ -185,9 +220,19 @@ def check_edges(device, seed: int = 7) -> int:
     return worst
 
 
+# about 10 ms of the card's clock: long enough for the host to queue a
+# timed run's calls behind it
+HOLD_CYCLES = 20_000_000
+
+
 def time_ms(fn, runs: int = 3, reps: int = 1) -> float:
     """One warm run, then the median of ``runs`` timed by CUDA events,
-    each over ``reps`` calls back to back; returns ms per call."""
+    each over ``reps`` calls back to back; returns ms per call.
+
+    Each run starts behind a spin kernel (``torch.cuda._sleep``) that holds
+    the card while the host queues the calls, so the events time the
+    card's work even where one call is shorter than its launch on the host
+    (a hybrid round's diagonal_neq is a few microseconds)."""
     import torch
 
     fn()
@@ -195,6 +240,7 @@ def time_ms(fn, runs: int = 3, reps: int = 1) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -393,18 +439,31 @@ def check_extend_edges(device, seed: int = 11) -> int:
             raise AssertionError(f"identical texts: wrong bits at offset {o}")
     print("  extend edge identical texts: mismatch exactly from the limit",
           flush=True)
+    # the kernel's own edges (tests/extend_cases.py), with the texts at the
+    # start of their buffers and 3 and 13 bytes into them
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from extend_cases import CASES, texts_on
+
+    for name, make in CASES.items():
+        ha, hb, off_a, off_b, lim_a, lim_b, length = make(
+            np.random.default_rng(sum(map(ord, name))))
+        for shift in (0, 3):
+            texts = texts_on(device, ha, hb, shift)
+            worst = max(worst, extend_compare(*texts, off_a, off_b, lim_a, lim_b, length))
+        print(f"  extend edge {name} ({len(off_a)} jobs x {length}, texts at "
+              "offsets 0 and 3/13 of their buffers): kernel == plain", flush=True)
     return worst
 
 
-def check_extend_production(device, seed: int = 12) -> dict:
-    """diagonal_neq kernel == plain at its two production shapes, with
-    both times: the anchor-extension micro's (128 jobs over a 5 Mbp
-    genome's doubled text) and a hybrid round's (8 queries of 5 Mbp)."""
+def extend_shapes(device, seed: int = 12) -> dict:
+    """The diagonal_neq kernel's two production shapes, name -> (a, b,
+    off_a, off_b, lim_a, lim_b) with the texts on ``device``: the
+    anchor-extension micro's (128 jobs over a 5 Mbp genome's doubled text)
+    and a hybrid round's (8 queries of 5 Mbp, one request each)."""
     import numpy as np
     import torch
 
     from phylonium_tpu_torch.data.sequence import revcomp
-    from phylonium_tpu_torch.ops import anchor_extend
 
     rng = np.random.default_rng(seed)
     genome = random_text(rng, 5_000_000)
@@ -412,7 +471,6 @@ def check_extend_production(device, seed: int = 12) -> dict:
         genome.tobytes() + b"#" + revcomp(genome.tobytes()), np.uint8
     ).copy()
     a = torch.from_numpy(doubled).to(device)
-    out = {}
     # the micro: 128 jobs x 2^19 at linspace offsets (bench.py:736-740),
     # here against a 1%-mutated copy so the bits are not all 0
     b = torch.from_numpy(mutate_text(rng, doubled, 0.01)).to(device)
@@ -426,7 +484,25 @@ def check_extend_production(device, seed: int = 12) -> dict:
     diag = rng.integers(-1000, 1000, 8)
     shapes["hybrid"] = (a, q, np.clip(diag + start, 0, None), bases + start,
                         doubled.size, bases + genome.size)
-    for name, (x, y, oa, ob, la, lb) in shapes.items():
+    return shapes
+
+
+def extend_bound(jobs_dev, oa, ob, la, lb) -> tuple[float, str]:
+    """The bound of one diagonal_neq call of CHUNK positions: the text
+    spans its jobs read, each byte once (the micro's jobs overlap), the
+    job records read, and CHUNK bits a job written."""
+    read = (span_bytes(oa, la, CHUNK) + span_bytes(ob, lb, CHUNK)
+            + jobs_dev.numel() * jobs_dev.element_size())
+    return bound(read + len(oa) * CHUNK / 8)
+
+
+def check_extend_production(device) -> dict:
+    """diagonal_neq kernel == plain at its two production shapes, with
+    both times and the bound of each."""
+    from phylonium_tpu_torch.ops import anchor_extend
+
+    out = {}
+    for name, (x, y, oa, ob, la, lb) in extend_shapes(device).items():
         err = extend_compare(x, y, oa, ob, la, lb, CHUNK)
         # time the launch and the plain computation alone: the wrapper's
         # host checks and the jobs' copy to the card stay outside
@@ -435,11 +511,7 @@ def check_extend_production(device, seed: int = 12) -> dict:
         plain_ms = time_ms(lambda: anchor_extend._plain(x, y, jobs_dev, CHUNK), reps=5)
         jobs = len(oa)
         gbp_s = jobs * CHUNK / (ms * 1e-3) / 1e9
-        # the text spans the jobs read, each byte once (the micro's jobs
-        # overlap), the job records read, and CHUNK bits a job written
-        read = (span_bytes(oa, la, CHUNK) + span_bytes(ob, lb, CHUNK)
-                + jobs_dev.numel() * jobs_dev.element_size())
-        bound_ms, bound_by = bound(read + jobs * CHUNK / 8)
+        bound_ms, bound_by = extend_bound(jobs_dev, oa, ob, la, lb)
         print(f"  extend production {name} {jobs} x {CHUNK}: kernel == plain; "
               f"kernel {ms:.4f} ms ({gbp_s:.1f} Gbp/s, "
               f"{2 * jobs * CHUNK / (ms * 1e-3) / 1e9:.1f} GB/s of text read), "
@@ -968,6 +1040,7 @@ def main() -> int:
 
     with phase("host compiler"):
         print(f"  CXX={pick_host_compiler()}", flush=True)
+        print(f"  reference host library {build_reference_host_library()}", flush=True)
 
     with phase("build"):
         _build.load()
@@ -1059,6 +1132,9 @@ def main() -> int:
         "gbp_s": ext["micro"]["gbp_s"],
         f"ms_8x{CHUNK}": ext["hybrid"]["ms"],
         f"plain_ms_8x{CHUNK}": ext["hybrid"]["plain_ms"],
+        f"bound_ms_8x{CHUNK}": ext["hybrid"]["bound_ms"],
+        f"bound_by_8x{CHUNK}": ext["hybrid"]["bound_by"],
+        f"gbp_s_8x{CHUNK}": ext["hybrid"]["gbp_s"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "pileup_build",
@@ -1077,6 +1153,8 @@ def main() -> int:
         "gb_s": streamed_group["gb_s"],
         "ms_128x1000000": lowmem_group["ms"],
         "plain_ms_128x1000000": lowmem_group["plain_ms"],
+        "bound_ms_128x1000000": lowmem_group["bound_ms"],
+        "bound_by_128x1000000": lowmem_group["bound_by"],
         "build_s": _build.BUILD_INFO["seconds"],
     }]}), flush=True)
     print(info["nvidia_smi"].splitlines()[0], flush=True)

@@ -12,21 +12,39 @@
 // and so does this kernel. Each row is written as packed 32-bit words:
 // bit i % 32 of word i / 32 is position i; bits past `length` are 0.
 //
-// What bounds it: moving bytes. A call reads 2*B*length text bytes (most
-// from L2: the hybrid mapper's texts are tens of MB) and writes B*length/8,
-// with a compare and a ballot per byte pair, so memory traffic and the
-// rate of load instructions set its time together. The design keeps the work
-// per byte small: one lane per byte, so a warp's loads are 32 consecutive
-// bytes of each text, and `__ballot_sync` turns the 32 compares into the
-// word that lane 0 stores. Loads are predicated on both limits and both text
-// lengths, so texts need no sentinel padding and a request that starts past
-// a text's end reads nothing. Positions are 64-bit: an offset near 2^31 plus
-// i overflows int32.
+// What bounds it on the H100: a call reads 2*B*length text bytes (the
+// hybrid mapper's texts are tens of MB, mostly served from L2) and writes
+// B*length/8 bytes, with one compare a byte pair and nothing else, so the
+// least time is the text bytes over the memory rate. What kept the first
+// design (one lane a byte pair, a 1-byte load from each text, a compare
+// and a __ballot_sync a position, lane 0 storing the word) far from that
+// was the instruction rate: two load instructions for every 32 positions
+// of a warp, and 31 of 32 lanes idle at each store.
+//
+// The design: one output word a lane, no ballot. Lane w of a job makes
+// word w of its row, so a warp stores 32 consecutive words. Its 32 bytes
+// of each text start at any alignment: the lane loads the aligned 16-byte
+// words that cover them (three, or two when aligned) and realigns them in
+// registers, a shift by whole words (selects) and a funnel shift by the
+// remaining bytes. __vcmpne4 compares four byte pairs at once, and a
+// multiply gathers its four flags into four bits of the word. A word whose
+// positions run past `end` = min(valid, length), or whose covering 16-byte
+// words reach outside a text, takes the byte path: one predicated 1-byte
+// load a text and position, so no load ever touches a byte outside
+// [0, a_len) or [0, b_len) and texts need no sentinel padding. Positions
+// at or past `end` are mismatches by mask; bits at or past `length` are
+// 0. Positions are 64-bit: an offset near 2^31 plus i overflows int32.
+//
+// What holds it back now, on an H100: where jobs overlap (the anchor-
+// extension micro's 128 jobs read each byte of a 10 MB text about 6.7
+// times), the text reads are served by L2 at about 4 TB/s, a quarter of
+// the bound that counts each byte once; a hybrid mapping round (8 jobs,
+// half a wave of blocks) takes about two bound-times, close to one
+// launch's latency.
 //
 // The Pallas kernel's roll-and-one-hot-row accumulation and its int32
 // output exist for Mosaic's limits (no i8 vectors, 32-bit roll only) and
-// are not carried over. Wider loads (16 bytes a lane, realigned with
-// funnel shifts) are later work.
+// are not carried over.
 
 #include <cstdint>
 
@@ -35,12 +53,73 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kWordsPerWarp = 8;   // words a warp makes per job, on average
+constexpr int64_t kMaxGridX = 65535;
 constexpr int64_t kMaxGridY = 65535;
 
 __device__ __forceinline__ int64_t min64(int64_t x, int64_t y) {
   return x < y ? x : y;
+}
+
+// the 12 little-endian words of the three aligned 16-byte loads that
+// cover p[0, 32); the third only when p is not 16-byte aligned
+__device__ __forceinline__ void load_cover(const uint8_t* p,
+                                           uint32_t (&w)[12]) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const uint4* q = reinterpret_cast<const uint4*>(addr & ~uintptr_t{15});
+  const uint4 x0 = q[0];
+  const uint4 x1 = q[1];
+  const uint4 x2 = (addr & 15) ? q[2] : make_uint4(0, 0, 0, 0);
+  w[0] = x0.x; w[1] = x0.y; w[2] = x0.z;  w[3] = x0.w;
+  w[4] = x1.x; w[5] = x1.y; w[6] = x1.z;  w[7] = x1.w;
+  w[8] = x2.x; w[9] = x2.y; w[10] = x2.z; w[11] = x2.w;
+}
+
+// p[4k, 4k + 4) as little-endian words, k < 8, from load_cover's words
+__device__ __forceinline__ void realign(const uint8_t* p,
+                                        const uint32_t (&w)[12],
+                                        uint32_t (&out)[8]) {
+  const unsigned r = static_cast<unsigned>(reinterpret_cast<uintptr_t>(p) & 15);
+  const bool by2 = r & 8;
+  const bool by1 = r & 4;
+  uint32_t e[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) e[k] = by2 ? w[k + 2] : w[k];
+  uint32_t f[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f[k] = by1 ? e[k + 1] : e[k];
+  const unsigned shift = 8 * (r & 3);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = __funnelshift_r(f[k], f[k + 1], shift);
+}
+
+// the 16-byte words covering p[0, 32) lie inside [text, text + len)
+__device__ __forceinline__ bool cover_inside(const uint8_t* p,
+                                             const uint8_t* text,
+                                             int64_t len) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = addr & ~uintptr_t{15};
+  const uintptr_t hi = lo + ((addr & 15) ? 48 : 32);
+  const uintptr_t t = reinterpret_cast<uintptr_t>(text);
+  return lo >= t && hi <= t + static_cast<uintptr_t>(len);
+}
+
+// bit k set where pa[k] != pb[k], k < 32, from wide loads
+__device__ __forceinline__ uint32_t neq_word(const uint8_t* pa,
+                                             const uint8_t* pb) {
+  uint32_t wa[12], wb[12], xa[8], xb[8];
+  load_cover(pa, wa);
+  load_cover(pb, wb);
+  realign(pa, wa, xa);
+  realign(pb, wb, xb);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    // 0x01 in each byte that differs; the multiply moves byte m's flag to
+    // bit 28 + m and the shift brings the four down (no carries collide)
+    const uint32_t flags = __vcmpne4(xa[k], xb[k]) & 0x01010101u;
+    bits |= ((flags * 0x10204080u) >> 28) << (4 * k);
+  }
+  return bits;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -52,10 +131,9 @@ diagonal_neq_kernel(const uint8_t* __restrict__ a, int64_t a_len,
                     const int64_t* __restrict__ lim_b, int64_t jobs,
                     int64_t length, int64_t words,
                     uint32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
   const int64_t first_word =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const int64_t word_step = static_cast<int64_t>(gridDim.x) * kWarps;
+      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t word_step = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t j = blockIdx.y; j < jobs; j += gridDim.y) {
     const int64_t oa = off_a[j];
     const int64_t ob = off_b[j];
@@ -65,14 +143,22 @@ diagonal_neq_kernel(const uint8_t* __restrict__ a, int64_t a_len,
                                 min64(lim_b[j], b_len) - ob);
     const int64_t end = min64(valid, length);
     uint32_t* row = out + j * words;
-    // the loop bound is the same for every lane of a warp, so all 32
-    // lanes reach the ballot together
     for (int64_t w = first_word; w < words; w += word_step) {
-      const int64_t i = w * 32 + lane;
-      bool neq = i < length;
-      if (i < end) neq = a[oa + i] != b[ob + i];
-      const uint32_t bits = __ballot_sync(0xffffffffu, neq);
-      if (lane == 0) row[w] = bits;
+      const int64_t i0 = w * 32;
+      // positions of this word that read the texts, and that lie in the row
+      const int64_t n_read = end - i0 < 0 ? 0 : min64(end - i0, 32);
+      const int64_t n_row = min64(length - i0, 32);
+      uint32_t bits = 0;
+      if (n_read == 32 && cover_inside(a + oa + i0, a, a_len) &&
+          cover_inside(b + ob + i0, b, b_len)) {
+        bits = neq_word(a + oa + i0, b + ob + i0);
+      } else {
+        for (int k = 0; k < n_read; ++k)
+          bits |= static_cast<uint32_t>(a[oa + i0 + k] != b[ob + i0 + k]) << k;
+      }
+      const uint32_t read_mask = n_read == 32 ? ~0u : (1u << n_read) - 1;
+      const uint32_t row_mask = n_row == 32 ? ~0u : (1u << n_row) - 1;
+      row[w] = (bits & read_mask) | (~read_mask & row_mask);
     }
   }
 }
@@ -93,9 +179,8 @@ extern "C" int pt_diagonal_neq(const uint8_t* a, int64_t a_len,
     return cudaErrorInvalidValue;
   const int64_t words = (length + 31) / 32;
   if (jobs == 0 || words == 0) return cudaSuccess;
-  const int64_t per_block = static_cast<int64_t>(kWarps) * kWordsPerWarp;
-  int64_t blocks_x = (words + per_block - 1) / per_block;
-  if (blocks_x > 65535) blocks_x = 65535;
+  int64_t blocks_x = (words + kThreads - 1) / kThreads;
+  if (blocks_x > kMaxGridX) blocks_x = kMaxGridX;
   const int64_t blocks_y = jobs < kMaxGridY ? jobs : kMaxGridY;
   const dim3 grid(static_cast<unsigned>(blocks_x),
                   static_cast<unsigned>(blocks_y));

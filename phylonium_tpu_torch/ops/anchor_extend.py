@@ -140,8 +140,10 @@ def diagonal_neq_bits_reference(
     return _plain(a, b, _job_tensor(a, b, off_a, off_b, lim_a, lim_b), length)
 
 
-def _launch(a, b, jobs: torch.Tensor, length: int) -> torch.Tensor:
-    lib = _build.load()
+def _launch(a, b, jobs: torch.Tensor, length: int, lib=None) -> torch.Tensor:
+    """One launch of ``pt_diagonal_neq`` from ``lib`` (the package's
+    library by default; tools/compare_kernels.py passes an older build)."""
+    lib = lib or _build.load()
     nb = jobs.shape[1]
     with torch.cuda.device(a.device):
         out = torch.empty(

@@ -15,7 +15,7 @@ and INVALID in both nibbles beyond, into a row slice of the panel, byte
 for byte what the JAX program returns at the same width.
 
 The overlay goes to the device sorted by (row, col) with per-row offsets,
-so the kernel reads a row's entries instead of scattering them: two
+so the kernel reads a tile's entries instead of scattering them: two
 entries of one row (c and c + l2) share a byte.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain version.
@@ -46,6 +46,15 @@ KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _INVALID_PAIR = INVALID | (INVALID << 4)
+
+# The kernel's tiling (csrc/pileup_build.cu: kTile, kRecChunk,
+# kOverlayChunk): a block makes TILE_BYTES output bytes of one row, 16 a
+# thread, and stages the records and overlay entries of each of its two
+# column spans in shared memory RECORD_CHUNK and OVERLAY_CHUNK at a time.
+# The tests build their edge cases from these.
+TILE_BYTES = 4096
+RECORD_CHUNK = 128
+OVERLAY_CHUNK = 512
 
 
 class GroupInputs(NamedTuple):
@@ -194,9 +203,12 @@ def build_packed_rows_reference(
     _plain(words, intervals, overlay, ref_len, out)
 
 
-def _launch(words, intervals, overlay, ref_len: int, out: torch.Tensor) -> None:
+def _launch(words, intervals, overlay, ref_len: int, out: torch.Tensor,
+            lib=None) -> None:
+    """One launch of ``pt_pileup_build`` from ``lib`` (the package's
+    library by default; tools/compare_kernels.py passes an older build)."""
     offsets, cols, vals = overlay
-    lib = _build.load()
+    lib = lib or _build.load()
     rows, width = out.shape
     with torch.cuda.device(out.device):
         err = lib.pt_pileup_build(

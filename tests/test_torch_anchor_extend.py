@@ -21,6 +21,7 @@ from phylonium_tpu.ops.anchor_extend_pallas import (
     pad_text2,
 )
 from phylonium_tpu_torch.ops import anchor_extend
+from extend_cases import CASES as EXTEND_CASES
 
 
 def _texts(seed, n, p, n_b=None):
@@ -110,6 +111,33 @@ def test_plain_bits_equal_xla_and_pallas(name, tile):
         off_a32, off_b32, lim_a, lim_b, length, tile=tile, interpret=True,
     )
     np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("name", sorted(EXTEND_CASES))
+def test_plain_bits_equal_jax_at_the_kernel_edges(name):
+    """The edges of csrc/diagonal_neq.cu (tests/extend_cases.py, which the
+    card test and chip_smoke.py hold the kernel to): the plain bitmaps
+    equal the XLA op's, and the Pallas kernel's in interpret mode where
+    the case is small enough for it."""
+    a, b, off_a, off_b, lim_a, lim_b, length = EXTEND_CASES[name](
+        np.random.default_rng(sum(map(ord, name)))
+    )
+    got = _port_bits(a, b, off_a, off_b, lim_a, lim_b, length)
+    tile = 512
+    off_a32 = np.asarray(off_a, np.int32)
+    off_b32 = np.asarray(off_b, np.int32)
+    want = xla_diagonal_neq(
+        jnp.asarray(pad_text(a, "a", tile)), jnp.asarray(pad_text(b, "b", tile)),
+        off_a32, off_b32, lim_a, lim_b, length, tile=tile,
+    )
+    np.testing.assert_array_equal(got, want)
+    if len(off_a) * -(-length // tile) <= 100:
+        pallas = diagonal_neq_pallas(
+            jnp.asarray(pad_text2(a, "a", tile)),
+            jnp.asarray(pad_text2(b, "b", tile)),
+            off_a32, off_b32, lim_a, lim_b, length, tile=tile, interpret=True,
+        )
+        np.testing.assert_array_equal(got, pallas)
 
 
 def test_identical_texts_mismatch_exactly_from_the_limit():

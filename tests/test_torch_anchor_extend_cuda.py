@@ -18,6 +18,7 @@ from phylonium_tpu.data.sequence import Sequence, gc_content, revcomp
 from phylonium_tpu.index.esa import ESAIndex
 from phylonium_tpu_torch.core.hybrid_map import hybrid_map_queries
 from phylonium_tpu_torch.ops import anchor_extend
+from extend_cases import CASES as EXTEND_CASES, texts_on
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -61,6 +62,28 @@ def test_kernel_equals_plain(card, na, nb, jobs, length):
     want = anchor_extend.diagonal_neq_bits_reference(
         ta, tb, off_a, off_b, lim_a, lim_b, length
     )
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("name", sorted(EXTEND_CASES))
+def test_kernel_equals_plain_at_the_edges(card, name, shift):
+    """tests/extend_cases.py on the card; with ``shift`` > 0 the texts
+    start 3 and 13 bytes into their buffers, so the 16-byte loads that
+    cover a text's first bytes would begin before it and the kernel must
+    take its byte path there."""
+    a, b, off_a, off_b, lim_a, lim_b, length = EXTEND_CASES[name](
+        np.random.default_rng(sum(map(ord, name)))
+    )
+    texts = texts_on(card, a, b, shift)
+    launches = anchor_extend.KERNEL_LAUNCHES
+    got = anchor_extend.diagonal_neq(*texts, off_a, off_b, lim_a, lim_b, length)
+    want = anchor_extend.diagonal_neq_bits_reference(
+        *texts, off_a, off_b, lim_a, lim_b, length
+    )
+    torch.cuda.synchronize()
+    assert anchor_extend.KERNEL_LAUNCHES == launches + 1
     assert torch.equal(got, want)
 
 

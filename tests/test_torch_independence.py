@@ -1,7 +1,10 @@
 """The port is a package of its own: it imports neither jax nor phylonium_tpu.
 
-- every ``.py`` under ``phylonium_tpu_torch/``, and ``chip_smoke.py``,
-  parsed with ``ast``: no import of ``jax*`` or of ``phylonium_tpu`` /
+- every ``.py`` under ``phylonium_tpu_torch/``, ``chip_smoke.py``, the
+  card tools it shares code with (``tools/compare_pair_count.py``,
+  ``tools/compare_kernels.py``) and the test inputs it imports
+  (``tests/pileup_cases.py``, ``tests/extend_cases.py``), parsed with
+  ``ast``: no import of ``jax*`` or of ``phylonium_tpu`` /
   ``phylonium_tpu.*``, at top level or inside a function (a string such as
   the reference CLI's ``-m phylonium_tpu`` argument is not an import);
 - a ``--device cpu`` run of the port's CLI, in a fresh process that first
@@ -24,7 +27,13 @@ SOURCES = sorted(
     for root, _, names in os.walk(PORT)
     for name in names
     if name.endswith(".py")
-) + ["chip_smoke.py"]
+) + [
+    "chip_smoke.py",
+    "tools/compare_pair_count.py",
+    "tools/compare_kernels.py",
+    "tests/pileup_cases.py",
+    "tests/extend_cases.py",
+]
 
 
 def _foreign(module: str) -> bool:

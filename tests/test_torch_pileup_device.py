@@ -104,6 +104,64 @@ def test_plain_build_writes_only_its_row_slice(rng):
     assert (panel_rows[:3] == 7).all() and (panel_rows[7:] == 7).all()
 
 
+def test_plain_build_writes_only_its_row_slice_across_tiles(rng):
+    """The card test's tile-crossing group (records across the kernel's
+    tile edges) written at row offset 3 of a larger panel."""
+    queries, homologies, ref_len = EDGE_CASES["records_across_tile_edges"](rng)
+    want, _ = _port_rows(queries, homologies, ref_len)
+    inputs = pileup_device.prepare_group(queries, homologies, ref_len)
+    rows = len(queries)
+    panel_rows = torch.full((rows + 5, packed_width(ref_len)), 7, dtype=torch.uint8)
+    pileup_device.build_packed_rows(
+        *(torch.from_numpy(a) for a in inputs[:2]),
+        tuple(torch.from_numpy(a) for a in inputs[2:]), ref_len,
+        panel_rows[3 : 3 + rows],
+    )
+    np.testing.assert_array_equal(panel_rows[3 : 3 + rows].numpy(), want)
+    assert (panel_rows[:3] == 7).all() and (panel_rows[3 + rows :] == 7).all()
+
+
+@pytest.mark.parametrize("extra", [0, 5, 16 + 3])
+def test_plain_build_at_widths_off_the_16_byte_grid(rng, extra):
+    """Rows of l2 + ``extra`` bytes, as the card test builds them: equal to
+    the JAX program and the host pileup at that width."""
+    queries, homologies, ref_len = EDGE_CASES["records_across_tile_edges"](rng)
+    width = -(-ref_len // 2) + extra
+    packed, bases, seps = group_payload(queries)
+    intervals = prep_intervals(homologies, bases, ref_len)
+    overlay = build_overlay(intervals, queries, bases, seps, ref_len)
+    out = torch.zeros((len(queries), width), dtype=torch.uint8)
+    pileup_device.build_packed_rows(
+        torch.from_numpy(packed.view(np.int32)), torch.from_numpy(intervals),
+        tuple(map(torch.from_numpy,
+                  pileup_device.sort_overlay(overlay, len(queries)))),
+        ref_len, out,
+    )
+    jax_rows = np.asarray(dispatch_build_packed(
+        packed, intervals, overlay, ref_len, -(-ref_len // 2), width
+    ))
+    np.testing.assert_array_equal(out.numpy(), jax_rows)
+    states = build_pileup(queries, homologies, ref_len)
+    np.testing.assert_array_equal(out.numpy(), pack_states(states, len(queries), width))
+
+
+def test_tiling_constants_match_the_kernel_source():
+    """TILE_BYTES, RECORD_CHUNK and OVERLAY_CHUNK, from which the edge
+    cases are built, are the kernel's own constants."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(pileup_device.__file__).parent.parent / "csrc"
+           / "pileup_build.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))
+
+    assert constant("kThreads") * constant("kBytesPerThread") == pileup_device.TILE_BYTES
+    assert constant("kRecChunk") == pileup_device.RECORD_CHUNK
+    assert constant("kOverlayChunk") == pileup_device.OVERLAY_CHUNK
+
+
 def test_overlay_is_sorted_per_row():
     orow = np.array([2, 0, 2, 1 << 30, 0, 2], np.int32)
     ocol = np.array([9, 4, 1, 0, 3, 5], np.int32)

@@ -72,6 +72,48 @@ def test_kernel_writes_only_its_row_slice(card):
 
 
 @pytest.mark.cuda
+def test_kernel_writes_only_its_row_slice_across_tiles(card):
+    """A group whose records cross the kernel's tile edges, written at row
+    offset 3 of a larger panel: the rows outside it keep their bytes."""
+    queries, homologies, ref_len = EDGE_CASES["records_across_tile_edges"](
+        np.random.default_rng(8)
+    )
+    words, intervals, overlay = _on(card, queries, homologies, ref_len)
+    rows = len(queries)
+    full = torch.full((rows + 5, packed_width(ref_len)), 7, dtype=torch.uint8,
+                      device=card)
+    want = full.clone()
+    pileup_device.build_packed_rows(words, intervals, overlay, ref_len,
+                                    full[3 : 3 + rows])
+    pileup_device.build_packed_rows_reference(
+        words, intervals, overlay, ref_len, want[3 : 3 + rows]
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(full, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 5, 16 + 3])
+def test_kernel_at_widths_off_the_16_byte_grid(card, extra):
+    """Rows of l2 + ``extra`` bytes in one buffer, so rows start off a
+    16-byte boundary and the kernel stores byte by byte there; the tile
+    count's ragged end falls elsewhere in each row."""
+    queries, homologies, ref_len = EDGE_CASES["records_across_tile_edges"](
+        np.random.default_rng(9)
+    )
+    words, intervals, overlay = _on(card, queries, homologies, ref_len)
+    width = -(-ref_len // 2) + extra
+    got = torch.full((len(queries), width), 7, dtype=torch.uint8, device=card)
+    want = got.clone()
+    pileup_device.build_packed_rows(words, intervals, overlay, ref_len, got)
+    pileup_device.build_packed_rows_reference(
+        words, intervals, overlay, ref_len, want
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_feeder_on_card_counts_equal_numpy(card):
     queries, homologies, ref_len = panel(np.random.default_rng(5), 12, 700)
     feeder = DeviceRowFeeder(12, ref_len, card)
