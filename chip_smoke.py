@@ -6,8 +6,11 @@
 Phases, each printed with its wall time; any failure ends the run with a
 non-zero exit and no result line:
 
-1. describe the card (needs torch.cuda.is_available()), and pick a host
-   C++ compiler with OpenMP for the native host library;
+1. describe the card (needs torch.cuda.is_available()); build the port's
+   native host library, whose build picks a C++ compiler with OpenMP
+   (``$CXX``, else g++) and keys the library by sources, flags, compiler
+   and CPU (``phylonium_tpu_torch/native/build.py``), and the JAX
+   package's with the same compiler;
 2. build the CUDA kernels from phylonium_tpu_torch/csrc with nvcc;
 3. hold the pair-count kernel against its plain PyTorch version, bit for
    bit, at edge shapes (tiny and ragged N, odd L, all-INVALID rows,
@@ -15,7 +18,9 @@ non-zero exit and no result line:
 4. the same at the main path's production shapes, 29 x 5 Mbp and
    600 x 1 Mbp, also against ``torch._int_mm`` on the one-hot operands
    (the library yardstick), with the kernel's, the plain version's and
-   the library call's times and the kernel's bound;
+   the library call's times and the kernel's bound; and one count of the
+   29 x 5 Mbp rows in column chunks (``_MAX_WIDTH`` patched to a few
+   ``ROW_ALIGN``s), equal bit for bit to the one-call count;
 5. hold the diagonal-mismatch kernel against its plain PyTorch version,
    word for word, at edge shapes (lengths 1 to 2^19, unaligned offsets
    and offsets at the text end, a limit of 0, 1 and 300 jobs, identical
@@ -51,7 +56,20 @@ non-zero exit and no result line:
     the port's serial run (which phase 7 holds against the JAX package),
     in the order serial, streamed, streamed, serial, with both runs'
     phase timings;
-12. low-memory end to end: a 1000 x 1 Mbp panel through the port's CLI
+12. the serial path's device pileup (X2) end to end: the 29 x 5 Mbp
+    panel through the port's CLI with ``PHYLONIUM_TPU_DEVICE_PILEUP=1``,
+    plain and with ``--complete-deletion``, each byte for byte against the
+    JAX package's CLI with host counting and the same flags, one build
+    launch a group; then the host pileup and X2 timed in turns (host, X2,
+    X2, host) in this process at 29 x 5 Mbp, plain and with
+    ``--complete-deletion``, and at phase 11's 116 x 5 Mbp, with each
+    run's phase timings;
+13. ``--profile``: the 29 x 5 Mbp panel with ``--profile=DIR`` and X2 on
+    the card; the trace must hold the phase ranges and one device event
+    for each pair-count and pileup-build launch; prints the card's busy
+    time (the union of device kernel intervals), the traced wall and the
+    idle share, and whether the feeder worker's ranges are in the trace;
+14. low-memory end to end: a 1000 x 1 Mbp panel through the port's CLI
     with ``PHYLONIUM_TPU_LOWMEM=force`` and with the serial pipeline, each
     in a child process whose peak RSS is printed, byte for byte.
 
@@ -68,6 +86,7 @@ package is its CLI in a subprocess, as the reference output.
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import os
@@ -106,38 +125,26 @@ def phase(name: str):
     print(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def pick_host_compiler() -> str:
-    """Point $CXX at a C++ compiler that builds OpenMP code.
+def port_host_library() -> dict:
+    """Build (or load) the port's native host library: its build picks
+    the compiler (``$CXX`` if it builds OpenMP code, else g++) and keys
+    the file by sources, flags, compiler and CPU. Returns its BUILD_INFO."""
+    from phylonium_tpu_torch.native import build as native_build
 
-    The host layer (suffix index, mapping, pileup) is a native library
-    built at first use with ``$CXX -fopenmp``. A machine may export a CXX
-    whose toolchain lacks OpenMP (no libgomp.spec); then the system g++
-    is used instead. Raises when neither compiles an OpenMP program.
-    """
-    tried = []
-    for cxx in dict.fromkeys(filter(None, (os.environ.get("CXX"), "g++"))):
-        with tempfile.TemporaryDirectory() as tmp:
-            src = os.path.join(tmp, "omp.cpp")
-            with open(src, "w") as f:
-                f.write("#include <omp.h>\nint main() { return omp_get_max_threads() < 1; }\n")
-            exe = os.path.join(tmp, "omp")
-            try:
-                proc = subprocess.run(
-                    [cxx, "-fopenmp", src, "-o", exe],
-                    capture_output=True, text=True, timeout=120,
-                )
-                if proc.returncode == 0:
-                    proc = subprocess.run(
-                        [exe], capture_output=True, text=True, timeout=60
-                    )
-            except OSError as e:
-                tried.append(f"{cxx}: {e}")
-                continue
-        if proc.returncode == 0:
-            os.environ["CXX"] = cxx
-            return cxx
-        tried.append(f"{cxx}: {proc.stderr.strip()[-300:]}")
-    raise RuntimeError("no C++ compiler builds OpenMP code:\n" + "\n".join(tried))
+    native_build.ensure_built()
+    return dict(native_build.BUILD_INFO)
+
+
+def reference_env() -> dict:
+    """The environment of a JAX-package subprocess: the repo on the path,
+    and CXX set to the compiler the port's build picked, since the JAX
+    package's own build runs ``$CXX -fopenmp`` as it is."""
+    from phylonium_tpu_torch.native import build as native_build
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["CXX"] = native_build.BUILD_INFO["compiler"]
+    return env
 
 
 def build_reference_host_library() -> str:
@@ -150,15 +157,13 @@ def build_reference_host_library() -> str:
     ("file too short"). Building it here first leaves the CLI nothing to
     build. Returns the library's path.
     """
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-c",
          "import sys\n"
          "from phylonium_tpu.native.build import ensure_built\n"
          "print(ensure_built())\n"
          "sys.exit('jax' in sys.modules)\n"],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
+        capture_output=True, text=True, cwd=REPO, env=reference_env(), timeout=600,
     )
     if proc.returncode != 0:
         raise RuntimeError(
@@ -308,9 +313,44 @@ def int_mm_ms(rows, check) -> float:
     return ms
 
 
-def check_production(device, n: int, length: int, seed: int) -> dict:
+def check_chunked(rows) -> dict:
+    """``pair_counts_rows`` with ``_MAX_WIDTH`` patched to 3 ROW_ALIGNs,
+    so the rows are counted in 32-byte column chunks (views at the
+    panel's row stride, summed in int64): equal, bit for bit, to the
+    one-call count of the same rows."""
+    import numpy as np
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.ops.states import ROW_ALIGN
+
+    whole = pair_count.pair_counts_rows(rows)
+    saved = pair_count._MAX_WIDTH
+    pair_count._MAX_WIDTH = 3 * ROW_ALIGN
+    try:
+        chunk = pair_count._chunk_bytes()
+        launches = pair_count.KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        chunked = pair_count.pair_counts_rows(rows)
+        seconds = time.perf_counter() - t0
+        launches = pair_count.KERNEL_LAUNCHES - launches
+    finally:
+        pair_count._MAX_WIDTH = saved
+    chunks = -(-rows.shape[1] // chunk)
+    if launches != chunks * pair_count.LAUNCHES_PER_CALL:
+        raise AssertionError(f"{launches} launches for {chunks} chunks")
+    if not all(np.array_equal(c, w) for c, w in zip(chunked, whole)):
+        raise AssertionError("the chunked count differs from the one-call count")
+    print(f"  chunked N={rows.shape[0]} width={rows.shape[1]} bytes: {chunks} "
+          f"chunks of {chunk} bytes ({launches} launches, {seconds:.3f} s) == "
+          "one call, bit for bit", flush=True)
+    return {"chunks": chunks, "chunk_bytes": chunk, "seconds": seconds}
+
+
+def check_production(device, n: int, length: int, seed: int,
+                     chunked: bool = False) -> dict:
     """Kernel == plain at a production shape, with the kernel's, the plain
-    version's and torch._int_mm's times, and the bound."""
+    version's and torch._int_mm's times, and the bound; with ``chunked``,
+    also the chunked count of the same rows (``check_chunked``)."""
     import numpy as np
 
     from phylonium_tpu_torch.ops import pair_count
@@ -338,6 +378,8 @@ def check_production(device, n: int, length: int, seed: int) -> dict:
     del mr, hr
     ms = time_ms(lambda: pair_count.cross_counts(rows, rows, symmetric=True))
     plain_ms = time_ms(lambda: cross_counts_reference(rows, rows))
+    if chunked:
+        check_chunked(rows)
     # the upper triangle with its diagonal, one multiply-add a cell and
     # column for each match plane (states that share a partner set share
     # one) and one for validity; the packed rows read once, two int32
@@ -577,8 +619,7 @@ def run_port_cli(args: list[str]) -> tuple[int, str]:
 def run_reference_cli(args: list[str], cwd: str) -> bytes:
     """The JAX package's CLI with host counting, in a subprocess that
     fails if it loads jax."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env()
     env["PHYLONIUM_TPU_EXPECT_NO_JAX"] = "1"
     proc = subprocess.run(
         [sys.executable, "-m", "phylonium_tpu", "--count-backend", "host", *args],
@@ -603,33 +644,34 @@ def check_phylip(text: str, n: int) -> None:
             raise AssertionError(f"bad PHYLIP row: {line[:200]}")
 
 
-def end_to_end(device_name: str, n: int = 29, length: int = 5_000_000) -> dict:
+def end_to_end(device_name: str, files: list[str], tmp: str) -> dict:
+    """The eco29-shaped panel in ``files`` through the port's CLI on the
+    card, byte for byte against the reference CLI."""
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
     from phylonium_tpu_torch.ops import pair_count
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        files = write_fasta(eco29_panel(n, length), tmp)
-        args = ["--progress=never", "--device", device_name, *files]
-        pair_count.KERNEL_LAUNCHES = 0
-        pair_count.PLAIN_CALLS = 0
-        t0 = time.perf_counter()
-        rc, ours = run_port_cli(args)
-        wall = time.perf_counter() - t0
-        launches = pair_count.KERNEL_LAUNCHES
-        info = dict(LAST_RUN_INFO)
-        if rc != 0:
-            raise RuntimeError(f"port CLI exited {rc}")
-        check_phylip(ours, n)
-        t0 = time.perf_counter()
-        reference = run_reference_cli(["--progress=never", *files], tmp)
-        ref_wall = time.perf_counter() - t0
+    n = len(files)
+    args = ["--progress=never", "--device", device_name, *files]
+    pair_count.KERNEL_LAUNCHES = 0
+    pair_count.PLAIN_CALLS = 0
+    t0 = time.perf_counter()
+    rc, ours = run_port_cli(args)
+    wall = time.perf_counter() - t0
+    launches = pair_count.KERNEL_LAUNCHES
+    info = dict(LAST_RUN_INFO)
+    if rc != 0:
+        raise RuntimeError(f"port CLI exited {rc}")
+    check_phylip(ours, n)
+    t0 = time.perf_counter()
+    reference = run_reference_cli(["--progress=never", *files], tmp)
+    ref_wall = time.perf_counter() - t0
     if ours.encode() != reference:
         raise AssertionError("port output differs from the JAX package's")
     if "jax" in sys.modules:
         raise AssertionError("the port's run imported jax")
     timings = info["timings"]
     print(
-        f"  e2e {n} x {length}: byte-identical to the JAX package's host "
+        f"  e2e, {n} genomes: byte-identical to the JAX package's host "
         f"count; carrier {info['compare_carrier']}, {launches} kernel "
         f"launches, wall {wall:.3f} s (reference CLI {ref_wall:.3f} s), "
         f"phases {json.dumps(timings)}", flush=True,
@@ -859,37 +901,46 @@ def zero_counts() -> None:
         module.PLAIN_CALLS = 0
 
 
-def end_to_end_streamed(device_name: str, n: int = 116, length: int = 5_000_000) -> dict:
-    """The 116 x 5 Mbp panel streamed and serial through the port's CLI,
-    in the order serial, streamed, streamed, serial; byte for byte."""
-    from phylonium_tpu_torch.core.stream import effective_group_rows
+def port_run(args: list[str], **env) -> dict:
+    """One in-process run of the port's CLI with ``env`` set: its stdout,
+    wall, phase timings, LAST_RUN_INFO and the launches and plain calls of
+    the count and the build, counted from 0 for this run."""
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
     from phylonium_tpu_torch.ops import pair_count, pileup_device
 
+    with env_set(**env):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, out = run_port_cli(args)
+        wall = time.perf_counter() - t0
+        counts = {
+            "build_launches": pileup_device.KERNEL_LAUNCHES,
+            "build_plain": pileup_device.PLAIN_CALLS,
+            "count_launches": pair_count.KERNEL_LAUNCHES,
+            "count_plain": pair_count.PLAIN_CALLS,
+        }
+    if rc != 0:
+        raise RuntimeError(f"port CLI exited {rc} with {env}")
+    info = dict(LAST_RUN_INFO)
+    return {"out": out, "wall": wall, "counts": counts, "info": info,
+            "timings": info["timings"]}
+
+
+def end_to_end_streamed(device_name: str, files: list[str]) -> dict:
+    """The 116 x 5 Mbp panel streamed and serial through the port's CLI,
+    in the order serial, streamed, streamed, serial; byte for byte."""
+    from phylonium_tpu_torch.core.stream import effective_group_rows
+    from phylonium_tpu_torch.ops import pair_count
+
+    n = len(files)
     groups = -(-n // effective_group_rows(n))
     runs = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
-        files = write_fasta(eco29_panel(n, length), tmp)
-        args = ["--progress=never", "--device", device_name, *files]
-        for mode in ("serial", "streamed", "streamed", "serial"):
-            with env_set(PHYLONIUM_TPU_STREAM="force" if mode == "streamed" else "0",
-                         PHYLONIUM_TPU_STREAM_GROUP=None):
-                zero_counts()
-                t0 = time.perf_counter()
-                rc, out = run_port_cli(args)
-                wall = time.perf_counter() - t0
-                counts = {
-                    "build_launches": pileup_device.KERNEL_LAUNCHES,
-                    "build_plain": pileup_device.PLAIN_CALLS,
-                    "count_launches": pair_count.KERNEL_LAUNCHES,
-                    "count_plain": pair_count.PLAIN_CALLS,
-                }
-            if rc != 0:
-                raise RuntimeError(f"port CLI ({mode}) exited {rc}")
-            check_phylip(out, n)
-            info = dict(LAST_RUN_INFO)
-            runs.append({"mode": mode, "out": out, "wall": wall, "counts": counts,
-                         "timings": info["timings"], "groups": info["stream_groups"]})
+    args = ["--progress=never", "--device", device_name, *files]
+    for mode in ("serial", "streamed", "streamed", "serial"):
+        r = port_run(args, PHYLONIUM_TPU_STREAM="force" if mode == "streamed" else "0",
+                     PHYLONIUM_TPU_STREAM_GROUP=None, PHYLONIUM_TPU_DEVICE_PILEUP=None)
+        check_phylip(r["out"], n)
+        runs.append({**r, "mode": mode, "groups": r["info"]["stream_groups"]})
     if any(r["out"] != runs[0]["out"] for r in runs):
         raise AssertionError("streamed output differs from the serial run's")
     if "jax" in sys.modules:
@@ -904,7 +955,7 @@ def end_to_end_streamed(device_name: str, n: int = 116, length: int = 5_000_000)
                 f"{r['mode']} run: {c}, {r['groups']} groups; expected "
                 f"{want_build} build launches, 0 plain calls, one count call"
             )
-    print(f"  streamed e2e {n} x {length}: byte-identical to the serial run; "
+    print(f"  streamed e2e, {n} genomes: byte-identical to the serial run; "
           f"{groups} groups of {effective_group_rows(n)}, {groups} build "
           f"launches, 0 build plain calls, {pair_count.LAUNCHES_PER_CALL} "
           "pair-count launches (one call) each", flush=True)
@@ -914,6 +965,144 @@ def end_to_end_streamed(device_name: str, n: int = 116, length: int = 5_000_000)
     streamed = [r for r in runs if r["mode"] == "streamed"]
     return {"launches": streamed[0]["counts"]["build_launches"],
             "runs": [{k: r[k] for k in ("mode", "wall", "timings")} for r in runs]}
+
+
+def end_to_end_device_pileup(device_name: str, files: list[str], tmp: str,
+                             timed: list[tuple[list[str], list[str]]]) -> dict:
+    """The serial path's device pileup (X2) on the card.
+
+    The panel in ``files`` through the port's CLI with
+    ``PHYLONIUM_TPU_DEVICE_PILEUP=1``, plain and with
+    ``--complete-deletion``, each byte for byte against the reference CLI
+    with the same flags, one build launch a group and one count call.
+    Then each (flags, panel) of ``timed`` runs in turns host, X2, X2, host
+    in this process; all four outputs equal."""
+    from phylonium_tpu_torch.core.stream import effective_group_rows
+    from phylonium_tpu_torch.ops import pair_count
+
+    n = len(files)
+    groups = -(-n // effective_group_rows(n))
+    checked = {}
+    for flags in ([], ["--complete-deletion"]):
+        args = ["--progress=never", *flags, "--device", device_name, *files]
+        r = port_run(args, PHYLONIUM_TPU_DEVICE_PILEUP="1", PHYLONIUM_TPU_STREAM=None,
+                     PHYLONIUM_TPU_STREAM_GROUP=None)
+        check_phylip(r["out"], n)
+        reference = run_reference_cli(["--progress=never", *flags, *files], tmp)
+        if r["out"].encode() != reference:
+            raise AssertionError(f"X2 output with {flags} differs from the JAX package's")
+        c, info = r["counts"], r["info"]
+        if (c["build_launches"] != groups or c["build_plain"]
+                or info["build_kernel_launches"] != groups
+                or c["count_launches"] != pair_count.LAUNCHES_PER_CALL or c["count_plain"]
+                or info["compare_carrier"] != "cuda-kernel" or info["stream_groups"]):
+            raise AssertionError(f"X2 run with {flags}: {c}, {info}")
+        name = " ".join(flags) or "plain"
+        checked[name] = r
+        print(f"  X2 e2e {n} genomes ({name}): byte-identical to the JAX package's "
+              f"host count with the same flags; {c['build_launches']} build launches "
+              f"({groups} groups), 0 build plain calls, {c['count_launches']} "
+              f"pair-count launches; wall {r['wall']:.3f} s, phases "
+              f"{json.dumps(r['timings'])}", flush=True)
+    if "jax" in sys.modules:
+        raise AssertionError("the X2 run imported jax")
+    turns = {}
+    for flags, panel in timed:
+        label = " ".join([f"{len(panel)} genomes", *flags])
+        args = ["--progress=never", *flags, "--device", device_name, *panel]
+        runs = []
+        for mode in ("host", "X2", "X2", "host"):
+            r = port_run(args, PHYLONIUM_TPU_DEVICE_PILEUP="1" if mode == "X2" else None,
+                         PHYLONIUM_TPU_STREAM=None, PHYLONIUM_TPU_STREAM_GROUP=None)
+            want = -(-len(panel) // effective_group_rows(len(panel))) if mode == "X2" else 0
+            if r["counts"]["build_launches"] != want or r["counts"]["build_plain"]:
+                raise AssertionError(f"{mode} run, {label}: {r['counts']}")
+            runs.append({**r, "mode": mode})
+        if any(r["out"] != runs[0]["out"] for r in runs):
+            raise AssertionError(f"X2 output differs from the host pileup's, {label}")
+        for r in runs:
+            print(f"  {label} {r['mode']:4s} wall {r['wall']:.3f} s, "
+                  f"phases {json.dumps(r['timings'])}", flush=True)
+        turns[label] = [{k: r[k] for k in ("mode", "wall", "timings")} for r in runs]
+    return {"launches": checked["plain"]["counts"]["build_launches"],
+            "out": checked["plain"]["out"], "turns": turns}
+
+
+def interval_union(intervals) -> float:
+    """Total length covered by (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def profile_run(device_name: str, files: list[str], tmp: str, expect_out: str) -> dict:
+    """The panel through the port's CLI with ``--profile=DIR`` and X2 on
+    the card: the trace must hold each phase range once and one device
+    event per pair-count and pileup-build launch. Returns the card's busy
+    time (union of device kernel intervals) within the traced phases, the
+    traced wall (start of ``index`` to end of ``compare``) and the idle
+    share."""
+    from phylonium_tpu_torch.utils.profile import GROUP_RANGE
+
+    trace_dir = os.path.join(tmp, "profile")
+    args = ["--progress=never", f"--profile={trace_dir}", "--device", device_name, *files]
+    r = port_run(args, PHYLONIUM_TPU_DEVICE_PILEUP="1", PHYLONIUM_TPU_STREAM=None,
+                 PHYLONIUM_TPU_STREAM_GROUP=None)
+    if r["out"] != expect_out:
+        raise AssertionError("the profiled run's output differs from the unprofiled run's")
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    ranges = {}
+    for e in spans:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append(e)
+    for name in ("index", "map", "pileup", "compare"):
+        if len(ranges.get(name, [])) != 1:
+            raise AssertionError(f"trace holds {len(ranges.get(name, []))} '{name}' ranges")
+    kernels = [e for e in spans if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("the trace holds no device events")
+    pair = [e for e in kernels if "pair_mma_kernel" in e["name"]]
+    build = [e for e in kernels if "pileup_build_kernel" in e["name"]]
+    c = r["counts"]
+    if len(pair) != c["count_launches"] or len(build) != c["build_launches"]:
+        raise AssertionError(
+            f"trace holds {len(pair)} pair-count and {len(build)} pileup-build "
+            f"kernels for {c['count_launches']} and {c['build_launches']} launches"
+        )
+    start = ranges["index"][0]["ts"]
+    end = ranges["compare"][0]["ts"] + ranges["compare"][0]["dur"]
+    busy_us = interval_union(
+        (max(e["ts"], start), min(e["ts"] + e["dur"], end)) for e in kernels
+        if e["ts"] < end and e["ts"] + e["dur"] > start
+    )
+    wall_us = end - start
+    workers = {e["tid"] for e in ranges.get(GROUP_RANGE, [])}
+    main_tid = ranges["index"][0]["tid"]
+    result = {
+        "busy_ms": busy_us / 1e3, "wall_s": wall_us / 1e6,
+        "idle": 1 - busy_us / wall_us, "kernels": len(kernels),
+        "pair_count_ms": sum(e["dur"] for e in pair) / 1e3,
+        "pileup_build_ms": sum(e["dur"] for e in build) / 1e3,
+        "worker_ranges": len(ranges.get(GROUP_RANGE, [])),
+        "worker_on_own_thread": bool(workers) and main_tid not in workers,
+    }
+    print(f"  profile {len(files)} genomes with X2: trace {os.path.basename(path)} "
+          f"({os.path.getsize(path)} bytes) holds the phase ranges, {len(pair)} "
+          f"pair-count and {len(build)} pileup-build kernel events, "
+          f"{len(kernels)} device kernels in all; card busy {result['busy_ms']:.3f} ms "
+          f"of a traced wall of {result['wall_s']:.3f} s (idle "
+          f"{100 * result['idle']:.3f} %); pair count {result['pair_count_ms']:.3f} ms, "
+          f"pileup build {result['pileup_build_ms']:.3f} ms on the card; "
+          f"{result['worker_ranges']} '{GROUP_RANGE}' ranges from the feeder's "
+          f"worker thread (own thread: {result['worker_on_own_thread']}); "
+          f"phases {json.dumps(r['timings'])}", flush=True)
+    return result
 
 
 _CHILD = """
@@ -1039,7 +1228,12 @@ def main() -> int:
             raise RuntimeError("nvidia-smi gave no name and power limit")
 
     with phase("host compiler"):
-        print(f"  CXX={pick_host_compiler()}", flush=True)
+        print(f"  CXX={os.environ.get('CXX', '(unset)')} in this machine's "
+              "environment", flush=True)
+        native = port_host_library()
+        print(f"  port host library {native['path']}: "
+              f"{'built' if native['built'] else 'loaded as built before'} "
+              f"with {native['compiler']}", flush=True)
         print(f"  reference host library {build_reference_host_library()}", flush=True)
 
     with phase("build"):
@@ -1054,7 +1248,7 @@ def main() -> int:
         worst = check_edges(device)
 
     with phase("production shapes"):
-        eco = check_production(device, 29, 5_000_000, seed=1)
+        eco = check_production(device, 29, 5_000_000, seed=1, chunked=True)
         wide = check_production(device, 600, 1_000_000, seed=2)
         torch.cuda.empty_cache()
     worst = max(worst, eco["max_abs_err"], wide["max_abs_err"])
@@ -1067,29 +1261,48 @@ def main() -> int:
         torch.cuda.empty_cache()
     extend_worst = max([extend_worst] + [v["max_abs_err"] for v in ext.values()])
 
-    with phase("end to end"):
-        e2e = end_to_end("cuda")
-    if e2e["launches"] < 1 or e2e["carrier"] != "cuda-kernel":
-        raise AssertionError("the main path did not launch the pair-count kernel")
+    # the eco29-shaped panels: 29 x 5 Mbp for phases 7, 12 and 13, and
+    # 116 x 5 Mbp for phases 11 and 12
+    with contextlib.ExitStack() as panels:
+        eco_dir = panels.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
+        eco_files = write_fasta(eco29_panel(29, 5_000_000), eco_dir)
 
-    with phase("hybrid end to end"):
-        hybrid = end_to_end_hybrid("cuda")
+        with phase("end to end"):
+            e2e = end_to_end("cuda", eco_files, eco_dir)
+        if e2e["launches"] < 1 or e2e["carrier"] != "cuda-kernel":
+            raise AssertionError("the main path did not launch the pair-count kernel")
 
-    with phase("build edge shapes"):
-        build_worst = check_build_edges(device)
+        with phase("hybrid end to end"):
+            hybrid = end_to_end_hybrid("cuda")
 
-    with phase("build production shapes"):
-        # one streamed group of 116 x 5 Mbp (effective_group_rows(116)) and
-        # one low-memory group of 1000 x 1 Mbp (group_rows_for(1000, 1 M))
-        streamed_group = check_build_production(device, 29, 5_000_000, seed=116)
-        lowmem_group = check_build_production(device, 128, 1_000_000, seed=1000)
-        torch.cuda.empty_cache()
-    build_worst = max(build_worst, streamed_group["max_abs_err"],
-                      lowmem_group["max_abs_err"])
+        with phase("build edge shapes"):
+            build_worst = check_build_edges(device)
 
-    with phase("streamed end to end"):
-        streamed = end_to_end_streamed("cuda")
-        torch.cuda.empty_cache()
+        with phase("build production shapes"):
+            # one streamed group of 116 x 5 Mbp (effective_group_rows(116)) and
+            # one low-memory group of 1000 x 1 Mbp (group_rows_for(1000, 1 M))
+            streamed_group = check_build_production(device, 29, 5_000_000, seed=116)
+            lowmem_group = check_build_production(device, 128, 1_000_000, seed=1000)
+            torch.cuda.empty_cache()
+        build_worst = max(build_worst, streamed_group["max_abs_err"],
+                          lowmem_group["max_abs_err"])
+
+        wide_dir = panels.enter_context(
+            tempfile.TemporaryDirectory(prefix="chip_smoke_stream_"))
+        wide_files = write_fasta(eco29_panel(116, 5_000_000), wide_dir)
+
+        with phase("streamed end to end"):
+            streamed = end_to_end_streamed("cuda", wide_files)
+            torch.cuda.empty_cache()
+
+        with phase("device pileup end to end"):
+            x2 = end_to_end_device_pileup(
+                "cuda", eco_files, eco_dir,
+                [([], eco_files), (["--complete-deletion"], eco_files), ([], wide_files)])
+            torch.cuda.empty_cache()
+
+        with phase("profile"):
+            profile_run("cuda", eco_files, eco_dir, x2["out"])
 
     with phase("low-memory end to end"):
         end_to_end_lowmem("cuda")
@@ -1142,7 +1355,8 @@ def main() -> int:
         "source": BUILD_SOURCE,
         "replaces": BUILD_REPLACES,
         "also_replaces": BUILD_ALSO_REPLACES,
-        "launches": streamed["launches"],
+        "launches": x2["launches"],
+        "launches_streamed": streamed["launches"],
         "max_abs_err": build_worst,
         "ms": streamed_group["ms"],
         "plain_ms": streamed_group["plain_ms"],

@@ -8,7 +8,11 @@ reference, run the pipeline (twice with ``-2``), print PHYLIP. The
 streamed and low-memory paths are reached through the JAX package's
 environment switches (``PHYLONIUM_TPU_STREAM``,
 ``PHYLONIUM_TPU_STREAM_GROUP``, ``PHYLONIUM_TPU_LOWMEM``,
-``PHYLONIUM_TPU_LOWMEM_BYTES``); the port adds no flag for them.
+``PHYLONIUM_TPU_LOWMEM_BYTES``), and so is the serial path's device
+pileup (``PHYLONIUM_TPU_DEVICE_PILEUP=1``); the port adds no flag for
+them. ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
+(both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
+writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
 
 ``parse_args``, ``cleanup_names``, ``usage`` and ``version`` and their
 helpers are a copy of the JAX package's (phylonium_tpu/cli.py:73-353),
@@ -18,6 +22,7 @@ text name the port, and ``--version`` prints the port's version.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 from collections import deque
@@ -28,12 +33,14 @@ import numpy as np
 from phylonium_tpu_torch import __version__
 from phylonium_tpu_torch.config import PROG, ConfigError, TorchRunConfig
 from phylonium_tpu_torch.core.lowmem import should_lowmem
-from phylonium_tpu_torch.core.pipeline import process, refuse_unported
+from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO, process, refuse_unported
 from phylonium_tpu_torch.core.reference_pick import pick_first_pass, pick_second_pass
 from phylonium_tpu_torch.data.sequence import join
 from phylonium_tpu_torch.io.fasta import read_genome
 from phylonium_tpu_torch.io.phylip import print_matrix
+from phylonium_tpu_torch.native import build as native_build
 from phylonium_tpu_torch.utils.platform import resolve_device
+from phylonium_tpu_torch.utils.profile import profiled
 
 USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
 \tEach FASTA file is one genome (multi-contig files are fine).
@@ -58,6 +65,7 @@ Options:
       --map-backend=B  Mapping: 'native', 'python', 'hybrid' (host chain,
                        anchor extension on --device), or 'auto' (default)
       --checkpoint=DIR Reuse/persist anchor-mapping results in DIR
+      --profile=DIR    Write a torch.profiler trace of the run to DIR
   -h, --help           This text
       --version        Version information
 """
@@ -468,27 +476,44 @@ def main(argv: list[str] | None = None) -> int:
         reference_index = pick_first_pass(queries, verbose=bool(cfg.verbose))
 
     try:
-        counts = process(queries[reference_index], queries, cfg)
-        if cfg.two_pass:
-            second_index = pick_second_pass(counts)
-            if second_index == reference_index:
-                # the pass-1 reference is already the central genome: a
-                # second pass would repeat the same deterministic run
-                if cfg.verbose:
-                    print(
-                        f"ref: {queries[reference_index].name}",
-                        file=sys.stderr,
-                    )
-            else:
-                reference_index = second_index
-                counts = process(queries[reference_index], queries, cfg)
+        with profiled(cfg):
+            counts = process(queries[reference_index], queries, cfg)
+            if cfg.two_pass:
+                second_index = pick_second_pass(counts)
+                if second_index == reference_index:
+                    # the pass-1 reference is already the central genome: a
+                    # second pass would repeat the same deterministic run
+                    if cfg.verbose:
+                        print(
+                            f"ref: {queries[reference_index].name}",
+                            file=sys.stderr,
+                        )
+                else:
+                    reference_index = second_index
+                    counts = process(queries[reference_index], queries, cfg)
     except ConfigError as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
+    if cfg.verbose and native_build.BUILD_INFO:
+        info = native_build.BUILD_INFO
+        print(
+            f"native library {info['path']} "
+            f"({'built' if info['built'] else 'loaded'}; {info['compiler']})",
+            file=sys.stderr,
+        )
 
     names = [q.name for q in queries]
     lengths = np.array([len(q) for q in queries], dtype=np.int64)
     print_matrix(cfg, names, lengths, counts, reference_index)
+
+    report_path = os.environ.get("PHYLONIUM_TPU_RUN_REPORT")
+    if report_path:
+        # written after the matrix, so it never perturbs the output
+        try:
+            with open(report_path, "w") as f:
+                json.dump(LAST_RUN_INFO, f)
+        except Exception as e:  # noqa: BLE001 — never fail the run over a report
+            cfg.warn(f"could not write run report: {e}")
     return cfg.return_code
 
 

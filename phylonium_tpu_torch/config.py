@@ -64,7 +64,7 @@ class RunConfig:
     map_backend: str = "auto"  # 'auto' | 'native' | 'python' | 'hybrid'
     mesh: str = ""  # 'R,C' device mesh for counting ('' = all devices)
     checkpoint_dir: str = ""  # reuse/persist mapping results here
-    profile_dir: str = ""  # write a profiler trace here (refused by the port)
+    profile_dir: str = ""  # write a torch.profiler trace here
     return_code: int = 0
     _progress_enabled: bool | None = field(default=None, repr=False)
 

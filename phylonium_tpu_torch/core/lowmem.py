@@ -30,7 +30,6 @@ the copy of ``should_lowmem`` has no multi-process carve-out.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 
@@ -41,6 +40,7 @@ from phylonium_tpu_torch.core.stream import DeviceRowFeeder, effective_group_row
 from phylonium_tpu_torch.data.sequence import Sequence
 from phylonium_tpu_torch.native import pair_counts_range
 from phylonium_tpu_torch.utils.platform import carrier, resolve_device
+from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # default panel-bytes threshold: above this the full byte pipeline
@@ -189,44 +189,42 @@ def map_count_lowmem(
     timings: dict = {}
     harrs: list = [None] * n
     bar = ProgressBar(f"Mapping {n} sequences", n, enabled=cfg.progress_enabled)
-    t0 = time.perf_counter()
-    try:
-        for lo in range(0, n, group):
-            hi = min(lo + group, n)
-            batch = [queries[j].as_array() for j in range(lo, hi)]
-            out = map_batch_native(ref._native, batch, threshold, bar, lo, raw=True)
-            harrs[lo:hi] = out
+    with phase(timings, "map+feed"):
+        try:
+            for lo in range(0, n, group):
+                hi = min(lo + group, n)
+                batch = [queries[j].as_array() for j in range(lo, hi)]
+                out = map_batch_native(ref._native, batch, threshold, bar, lo, raw=True)
+                harrs[lo:hi] = out
+                if feeder is not None:
+                    feeder.feed(batch, out)
+                bar.update(hi)
+                del batch  # the feeder's queue holds the group until it is built
+        except BaseException:
             if feeder is not None:
-                feeder.feed(batch, out)
-            bar.update(hi)
-            del batch  # the feeder's queue holds the group until it is built
-    except BaseException:
-        if feeder is not None:
-            feeder.cancel()
-        raise
-    bar.finish()
-    timings["map+feed"] = time.perf_counter() - t0
+                feeder.cancel()
+            raise
+        bar.finish()
 
     num_comparisons = (n * n - n) // 2
     cbar = ProgressBar(
         "Comparing the sequences", num_comparisons,
         enabled=cfg.progress_enabled,
     )
-    t0 = time.perf_counter()
     info = {
         "group_rows": group,
         "homologies": int(sum(len(h) for h in harrs)),
     }
-    if feeder is None:
-        subs, homs = pair_counts_windowed(
-            queries, harrs, ref_len,
-            progress=lambda f: cbar.update(int(f * num_comparisons)),
-        )
-        info["carrier"] = "host"
-    else:
-        subs, homs = feeder.finish()
-        info["carrier"] = carrier(feeder.device)
-        info["groups"] = feeder.groups
-    timings["compare"] = time.perf_counter() - t0
+    with phase(timings, "compare"):
+        if feeder is None:
+            subs, homs = pair_counts_windowed(
+                queries, harrs, ref_len,
+                progress=lambda f: cbar.update(int(f * num_comparisons)),
+            )
+            info["carrier"] = "host"
+        else:
+            subs, homs = feeder.finish()
+            info["carrier"] = carrier(feeder.device)
+            info["groups"] = feeder.groups
     cbar.finish()
     return subs, homs, timings, info

@@ -8,6 +8,9 @@ position file (C++ in ``native/`` and numpy). What runs on the torch
 device the configuration names:
 
 - the all-pairs count, once, through ops/pair_count.py;
+- with ``PHYLONIUM_TPU_DEVICE_PILEUP=1`` (``device_pileup``), the serial
+  path's pileup, built as the packed panel the count reads
+  (``ops.pileup_device.build_pileup_device``);
 - hybrid mapping's diagonal bitmaps (``--map-backend hybrid``), through
   core/hybrid_map.py;
 - the streamed path (``PHYLONIUM_TPU_STREAM=force``, core/stream.py): the
@@ -19,17 +22,18 @@ device the configuration names:
 
 Three paths, one result: each is byte-identical to the others.
 
+Each phase is timed into ``LAST_RUN_INFO["timings"]`` inside a profiler
+range of its name (utils/profile.py), which ``--profile`` traces.
+
 Not carried here: pod and mesh runs (and with them the multi-host
 mapping split), kernel prewarm, link calibration, the host race, the
-early query shipper and the device server. Options that would reach the
-JAX package's device code are refused.
+early query shipper and the device server. ``--mesh`` is refused.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -50,6 +54,7 @@ from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.model.evo import EvoCounts
 from phylonium_tpu_torch.ops import anchor_extend, pair_count, pileup_device
 from phylonium_tpu_torch.utils.platform import carrier, resolve_device
+from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # What the most recent process() run did: which carrier mapped the
@@ -71,8 +76,6 @@ def refuse_unported(cfg: TorchRunConfig) -> None:
     """Raise ConfigError for options that reach JAX device code."""
     if cfg.mesh:
         raise ConfigError("--mesh is not supported by the torch port yet")
-    if cfg.profile_dir:
-        raise ConfigError("--profile is not supported by the torch port yet")
 
 
 def map_queries(
@@ -222,21 +225,44 @@ def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
     return ref.backend_name == "native"
 
 
+def device_pileup(cfg: TorchRunConfig) -> bool:
+    """Build the serial path's pileup on ``cfg.device`` (X2)?
+
+    Opt-in, as in the JAX package (phylonium_tpu/core/pipeline.py:1173-1181):
+    ``PHYLONIUM_TPU_DEVICE_PILEUP=1``, the count on the device (auto,
+    device or pallas) and no ``-p``, which needs the host matrix. Any map
+    backend and checkpoints are allowed.
+    """
+    return (
+        os.environ.get("PHYLONIUM_TPU_DEVICE_PILEUP") == "1"
+        and cfg.count_backend in ("auto", "device", "pallas")
+        and not cfg.print_positions
+    )
+
+
 def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
-    """Map every query, build the [N, L] pileup on the host, count."""
-    t0 = time.perf_counter()
-    homologies = map_queries(ref, threshold, queries, cfg)
-    timings["map"] = time.perf_counter() - t0
+    """Map every query, build the pileup, count.
+
+    The pileup is the host's [N, L] matrix, packed and copied for the
+    count, or under ``device_pileup`` the packed panel built on the
+    device, which the count reads where it lies.
+    """
+    with phase(timings, "map"):
+        homologies = map_queries(ref, threshold, queries, cfg)
     timings.update(LAST_RUN_INFO.pop("map_split", {}))
 
     if cfg.complete_deletion:
         homologies = complete_delete(homologies)
 
-    t0 = time.perf_counter()
-    states = build_pileup(
-        [q.as_array() for q in queries], homologies, len(subject)
-    )
-    timings["pileup"] = time.perf_counter() - t0
+    device = resolve_device(cfg.device) if device_pileup(cfg) else None
+    with phase(timings, "pileup"):
+        query_arrays = [q.as_array() for q in queries]
+        if device is None:
+            states = build_pileup(query_arrays, homologies, len(subject))
+        else:
+            panel = pileup_device.build_pileup_device(
+                query_arrays, homologies, len(subject), device
+            )
 
     if cfg.print_positions:
         write_refpos(cfg.refpos_file_name, subject.nucl, states, homologies[0])
@@ -246,9 +272,12 @@ def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
         "Comparing the sequences", (n * n - n) // 2,
         enabled=cfg.progress_enabled,
     )
-    t0 = time.perf_counter()
-    counts = pair_counts(states, cfg)
-    timings["compare"] = time.perf_counter() - t0
+    with phase(timings, "compare"):
+        if device is None:
+            counts = pair_counts(states, cfg)
+        else:
+            LAST_RUN_INFO["compare_carrier"] = carrier(device)
+            counts = pair_count.pair_counts_rows(panel)
     bar.finish()
     return counts
 
@@ -260,18 +289,16 @@ def _streamed(ref, threshold, subject, queries, cfg, timings) -> tuple:
     feeder = DeviceRowFeeder(len(queries), len(subject), device)
     LAST_RUN_INFO["map_carrier"] = "native"
     LAST_RUN_INFO["map_rounds"] = 0
-    t0 = time.perf_counter()
-    map_pileup_streamed(ref, threshold, queries, cfg, feeder)
-    timings["map+pileup+feed"] = time.perf_counter() - t0
+    with phase(timings, "map+pileup+feed"):
+        map_pileup_streamed(ref, threshold, queries, cfg, feeder)
 
     n = len(queries)
     bar = ProgressBar(
         "Comparing the sequences", (n * n - n) // 2,
         enabled=cfg.progress_enabled,
     )
-    t0 = time.perf_counter()
-    counts = feeder.finish()
-    timings["compare"] = time.perf_counter() - t0
+    with phase(timings, "compare"):
+        counts = feeder.finish()
     bar.finish()
     LAST_RUN_INFO["compare_carrier"] = carrier(device)
     LAST_RUN_INFO["stream_groups"] = feeder.groups
@@ -300,9 +327,8 @@ def process(
     }
     timings: dict[str, float] = {}
 
-    t0 = time.perf_counter()
-    ref = ESAIndex(subject, backend=cfg.esa_backend)
-    timings["index"] = time.perf_counter() - t0
+    with phase(timings, "index"):
+        ref = ESAIndex(subject, backend=cfg.esa_backend)
     gc = gc_content(subject.nucl)
     threshold = min_anchor_length(cfg.anchor_p_value, gc, ref.size)
 

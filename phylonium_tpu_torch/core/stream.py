@@ -8,8 +8,10 @@ group on the host (2-bit codes, interval records, overlay;
 through pinned staging buffers on a side CUDA stream, and launches the
 pileup-build kernel there, which writes the group's packed rows straight
 into one preallocated [N, W] panel while the host maps the next group.
-``finish()`` makes the current stream wait on the groups' events and
-counts the panel (``ops.pair_count.pair_counts_rows``).
+``built()`` makes the current stream wait on the groups' events and
+returns the panel; ``finish()`` counts it (``ops.pair_count.pair_counts_rows``).
+The same feeder builds the serial path's device pileup
+(``ops.pileup_device.build_pileup_device``).
 
 What the card changes against the JAX design:
 
@@ -41,6 +43,7 @@ from phylonium_tpu_torch.core.map_native import map_batch_native
 from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.ops import pair_count, pileup_device
 from phylonium_tpu_torch.ops.states import packed_width
+from phylonium_tpu_torch.utils.profile import GROUP_RANGE
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # groups waiting for the worker, beyond the one it builds; each holds its
@@ -105,7 +108,8 @@ class DeviceRowFeeder:
                 if item is None:
                     return
                 if self._error is None and not self._stopped:
-                    self._build(*item)
+                    with torch.profiler.record_function(GROUP_RANGE):
+                        self._build(*item)
             except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
                 self._error = e
             finally:
@@ -153,8 +157,9 @@ class DeviceRowFeeder:
         self._q.put(None)
         self._worker.join()
 
-    def finish(self) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for every group, then count the panel on its device."""
+    def built(self) -> torch.Tensor:
+        """Wait for the worker to launch every group; return the panel,
+        with the current stream ordered after its builds."""
         self._stop()
         if self._error is not None:
             raise self._error
@@ -166,7 +171,11 @@ class DeviceRowFeeder:
             current = torch.cuda.current_stream(self.device)
             for event in self._events:
                 current.wait_event(event)
-        return pair_count.pair_counts_rows(self.panel)
+        return self.panel
+
+    def finish(self) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for every group, then count the panel on its device."""
+        return pair_count.pair_counts_rows(self.built())
 
     def cancel(self) -> None:
         """Drop the groups not yet built and stop the worker (the run is

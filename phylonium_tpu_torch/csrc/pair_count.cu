@@ -66,7 +66,8 @@
 //   fit on an SM.
 //
 // int32 sums are exact while a cell counts fewer than 2^31 columns; the
-// Python wrapper refuses wider inputs.
+// Python wrapper counts wider rows in column chunks (views of the panel at
+// its full row stride) and sums the chunks in int64.
 
 #include <cstdint>
 

@@ -30,8 +30,17 @@ PLAIN_CALLS = 0
 # pt_cross_counts launches the kernel twice: matches, then homologs
 LAUNCHES_PER_CALL = 2
 
-# int32 cells: a cell counts at most 2 states per packed byte
+# One launch sums at most 2 states per packed byte into an int32 cell, so
+# it takes rows narrower than this; pair_counts_rows counts wider rows in
+# column chunks and sums them in int64, as the JAX package's
+# pair_counts_pallas does (phylonium_tpu/ops/pallas_match.py:349-365).
 _MAX_WIDTH = (1 << 31) // 2
+
+
+def _chunk_bytes() -> int:
+    """Packed bytes of one column chunk: the largest multiple of
+    ROW_ALIGN below _MAX_WIDTH."""
+    return (_MAX_WIDTH - 1) // ROW_ALIGN * ROW_ALIGN
 
 # devices whose constant memory holds PARTNER_MASK
 _masks_on: set[int] = set()
@@ -44,10 +53,17 @@ def _check(a: torch.Tensor, b: torch.Tensor, symmetric: bool) -> None:
                 f"{name} must be a 2-D uint8 tensor of packed rows, got "
                 f"{t.dtype} with shape {tuple(t.shape)}"
             )
-        if not t.is_contiguous():
+        # rows of a panel, or a column chunk of them: a view whose rows
+        # are contiguous and 16-byte aligned
+        if t.stride(1) != 1:
             raise ValueError(f"{name} must be contiguous (row-major)")
         if t.data_ptr() % ROW_ALIGN:
             raise ValueError(f"{name} must start on a {ROW_ALIGN}-byte boundary")
+        if t.stride(0) % ROW_ALIGN or t.stride(0) < t.shape[1]:
+            raise ValueError(
+                f"{name}'s row stride {t.stride(0)} is not a multiple of "
+                f"{ROW_ALIGN} bytes at least its width {t.shape[1]}"
+            )
     if a.device != b.device:
         raise ValueError(f"a is on {a.device} but b is on {b.device}")
     width = a.shape[1]
@@ -60,8 +76,8 @@ def _check(a: torch.Tensor, b: torch.Tensor, symmetric: bool) -> None:
         )
     if width >= _MAX_WIDTH:
         raise ValueError(
-            f"row width {width} bytes holds 2^31 or more states: int32 "
-            "cells could overflow"
+            f"row width {width} bytes is more than one call counts "
+            f"(< {_MAX_WIDTH}); pair_counts_rows counts it in column chunks"
         )
     if symmetric and (a.data_ptr() != b.data_ptr() or a.shape != b.shape):
         raise ValueError("symmetric counting needs a and b to be one tensor")
@@ -124,12 +140,21 @@ def pair_counts_rows(rows: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     ``rows``: [N, W] uint8 split-nibble rows on their device (the
     one-shot path's copy, or the streamed feeder's panel). One symmetric
     count for any N; the upper triangle is mirrored and the diagonal
-    zeroed (the reference never compares a genome with itself). Returns
+    zeroed (the reference never compares a genome with itself). Rows of
+    ``_MAX_WIDTH`` bytes or more are counted in column chunks, each a view
+    of the panel, and the int32 chunk counts summed in int64. Returns
     int64 numpy arrays.
     """
-    matches, homs = cross_counts(rows, rows, symmetric=True)
-    matches = _mirror_upper(matches.cpu().numpy().astype(np.int64))
-    homs = _mirror_upper(homs.cpu().numpy().astype(np.int64))
+    n, width = rows.shape
+    matches = np.zeros((n, n), dtype=np.int64)
+    homs = np.zeros((n, n), dtype=np.int64)
+    step = _chunk_bytes()
+    for start in range(0, max(width, 1), step):
+        chunk = rows[:, start : start + step]
+        m, h = cross_counts(chunk, chunk, symmetric=True)
+        matches += m.cpu().numpy()
+        homs += h.cpu().numpy()
+    matches, homs = _mirror_upper(matches), _mirror_upper(homs)
     return homs - matches, homs
 
 

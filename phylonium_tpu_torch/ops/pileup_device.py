@@ -1,7 +1,9 @@
 """One group's pileup rows, built and split-nibble packed on the device.
 
 The port of the JAX package's phylonium_tpu/ops/pileup_device.py (the XLA
-program ``_build_packed`` and its wrapper ``build_packed_rows_device``).
+program ``_build_packed`` and its wrapper ``build_packed_rows_device``,
+and ``build_pileup_device``, the serial path's device pileup, which runs
+here through the same kernel).
 The host prep is the port's copy of the JAX package's
 ``ops/pileup_prep.py``: ``group_payload`` packs the group's queries into 2-bit
 codes, ``prep_intervals`` turns its homologies into (start, end, B, dir)
@@ -21,6 +23,11 @@ entries of one row (c and c + l2) share a byte.
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain version.
 The route follows the output's device and nothing else: a kernel that
 fails to build or launch raises.
+
+``build_pileup_device`` builds a whole panel: it cuts the genomes into
+groups (``row_groups``) and builds them through the streamed feeder
+(core/stream.py), whose worker preps group k + 1 on the host while the
+card builds group k.
 """
 
 from __future__ import annotations
@@ -246,3 +253,69 @@ def build_packed_rows(
         raise ValueError(f"no pileup-build route for device {out.device}")
     PLAIN_CALLS += 1
     _plain(words, intervals, overlay, ref_len, out)
+
+
+def row_groups(lengths: list[int], ref_len: int, group_rows: int) -> list[tuple[int, int]]:
+    """[lo, hi) row ranges of a device build: at most ``group_rows`` genomes
+    each, their query bases below the int32 limit.
+
+    The limit, ``_MAX_GROUP_BASES - 2 * ref_len - 1``, and the greedy cut
+    are the JAX package's (phylonium_tpu/ops/pileup_device.py:303-338).
+    A single query above the limit raises ConfigError, as there.
+    """
+    limit = _MAX_GROUP_BASES - 2 * ref_len - 1
+    longest = max(lengths, default=0)
+    if longest > limit:
+        raise ConfigError(
+            "device pileup builder addresses queries with int32 indices; a "
+            f"{longest}-base query needs the host builder (unset "
+            "PHYLONIUM_TPU_DEVICE_PILEUP)"
+        )
+    bounds = []
+    lo = 0
+    while lo < len(lengths):
+        hi, bases = lo + 1, lengths[lo]
+        while (hi < len(lengths) and hi - lo < group_rows
+               and bases + lengths[hi] < limit):
+            bases += lengths[hi]
+            hi += 1
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def build_pileup_device(
+    queries: list[np.ndarray],
+    homologies: list,
+    ref_len: int,
+    device: torch.device,
+) -> torch.Tensor:
+    """The [N, W] split-nibble pileup panel, built on ``device``.
+
+    The counterpart of the JAX package's ``build_pileup_device``
+    (phylonium_tpu/ops/pileup_device.py:287): the serial path's pileup
+    under ``PHYLONIUM_TPU_DEVICE_PILEUP=1``, after complete deletion, from
+    any mapper's homologies. No kernel of its own: each group of
+    ``row_groups`` (at most the streamed feeder's ``effective_group_rows``
+    genomes) goes through ``prepare_group`` and
+    ``build_packed_rows`` into one resident panel, which
+    ``ops.pair_count.pair_counts_rows`` counts as it stands. Where the JAX
+    program returned [N, L] states padded to a shape bucket, this returns
+    ``pack_rows`` of the host pileup, byte for byte. Returns once every
+    group is built.
+    """
+    from phylonium_tpu_torch.core.stream import DeviceRowFeeder, effective_group_rows
+
+    n = len(queries)
+    bounds = row_groups([len(q) for q in queries], ref_len, effective_group_rows(n))
+    feeder = DeviceRowFeeder(n, ref_len, device)
+    try:
+        for lo, hi in bounds:
+            feeder.feed(queries[lo:hi], homologies[lo:hi])
+        panel = feeder.built()
+    except BaseException:
+        feeder.cancel()
+        raise
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return panel

@@ -13,7 +13,7 @@ import torch
 from phylonium_tpu.ops.match_table import pair_counts_numpy
 from phylonium_tpu_torch.ops import pair_count
 from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
-from phylonium_tpu_torch.ops.states import pack_rows, to_device
+from phylonium_tpu_torch.ops.states import ROW_ALIGN, pack_rows, to_device
 
 INVALID = 10
 
@@ -100,3 +100,21 @@ def test_kernel_on_a_row_slice(card, n):
     rows = panel[5 : 5 + n]
     _check(rows, rows, True)
     _check(rows, panel[20:], False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_width", [2 * ROW_ALIGN, 3 * ROW_ALIGN, 100 * ROW_ALIGN])
+def test_chunked_counts_equal_unchunked(card, monkeypatch, max_width):
+    """Rows counted in column chunks (views at the panel's row stride,
+    summed in int64) equal one call, bit for bit."""
+    for n, length in ((29, 30_001), (130, 4001)):
+        rows = to_device(pack_rows(_states(n + length, n, length, invalid_row=1)), card)
+        whole = pair_count.pair_counts_rows(rows)
+        with monkeypatch.context() as patch:
+            patch.setattr(pair_count, "_MAX_WIDTH", max_width)
+            launches = pair_count.KERNEL_LAUNCHES
+            chunked = pair_count.pair_counts_rows(rows)
+            chunks = -(-rows.shape[1] // pair_count._chunk_bytes())
+        assert chunks > 1
+        assert pair_count.KERNEL_LAUNCHES - launches == chunks * pair_count.LAUNCHES_PER_CALL
+        assert all(np.array_equal(c, w) for c, w in zip(chunked, whole))

@@ -21,7 +21,7 @@ from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.ops import pair_count
 from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference, onehot_operands
 from phylonium_tpu_torch.ops.match_table import MATCH_PLANES, MATCH_TABLE, PARTNER_MASK
-from phylonium_tpu_torch.ops.states import pack_rows, packed_width
+from phylonium_tpu_torch.ops.states import ROW_ALIGN, pack_rows, packed_width
 from phylonium_tpu_torch.utils.platform import resolve_device
 
 CPU = torch.device("cpu")
@@ -215,3 +215,53 @@ def test_onehot_operands_shapes_and_values():
     assert int(ops_a[:, : planes * length].view(3, planes, length).sum(1).max()) <= 1
     assert not ops_b[:5, planes * length :].any()
     assert not ops_b[5:, : planes * length].any()
+
+
+# states a row whose packed widths (16, 32, 48, 64, 80 and 96 bytes) fall
+# on and between the edges of 16- and 32-byte column chunks
+CHUNK_LENGTHS = [1, 32, 33, 64, 65, 97, 129, 190]
+
+
+@pytest.mark.parametrize("max_width", [2 * ROW_ALIGN, 3 * ROW_ALIGN])
+@pytest.mark.parametrize("length", CHUNK_LENGTHS)
+def test_chunked_counts_equal_unchunked_and_pallas(monkeypatch, max_width, length):
+    """Rows of _MAX_WIDTH bytes or more are counted in column chunks and
+    summed in int64: the same counts as one call and as the JAX package's
+    pair_counts_pallas."""
+    states = _states(50 + length, 5, length, invalid_row=3)
+    rows = torch.from_numpy(pack_rows(states))
+    whole = pair_count.pair_counts_rows(rows)
+    monkeypatch.setattr(pair_count, "_MAX_WIDTH", max_width)
+    calls = pair_count.PLAIN_CALLS
+    chunked = pair_count.pair_counts_rows(rows)
+    step = pair_count._chunk_bytes()
+    assert step % ROW_ALIGN == 0 and step < max_width
+    assert pair_count.PLAIN_CALLS - calls == -(-rows.shape[1] // step)
+    assert _equal(chunked, whole)
+    assert all(c.dtype == np.int64 for c in chunked)
+    assert _equal(chunked, pair_counts_pallas(states, block=128, interpret=True))
+    # a single call still refuses rows it cannot count exactly
+    if rows.shape[1] >= max_width:
+        with pytest.raises(ValueError, match="column chunks"):
+            pair_count.cross_counts(rows, rows, symmetric=True)
+
+
+def test_cross_counts_takes_column_views():
+    """A column chunk is a view at the panel's row stride: counted as its
+    contiguous copy is, on the CPU route and by the plain version."""
+    a = torch.from_numpy(pack_rows(_states(60, 6, 300)))
+    b = torch.from_numpy(pack_rows(_states(61, 4, 300)))
+    for lo, hi in ((0, 16), (16, 48), (144, 160)):
+        va, vb = a[:, lo:hi], b[:, lo:hi]
+        assert va.stride(0) == a.shape[1]
+        want = cross_counts_reference(va.contiguous(), vb.contiguous())
+        got = pair_count.cross_counts(va, vb)
+        assert all(torch.equal(g.to(torch.int64), w) for g, w in zip(got, want))
+        assert all(torch.equal(g, w) for g, w in zip(cross_counts_reference(va, vb), want))
+        sym = pair_count.cross_counts(va, va, symmetric=True)
+        assert torch.equal(sym[1].to(torch.int64), cross_counts_reference(va, va)[1])
+    with pytest.raises(ValueError, match="boundary"):
+        pair_count.cross_counts(a[:, 8:24], a[:, 8:24])
+    odd_stride = torch.zeros((3, 40), dtype=torch.uint8)[:, :16]
+    with pytest.raises(ValueError, match="row stride"):
+        pair_count.cross_counts(odd_stride, odd_stride)

@@ -18,7 +18,7 @@ from phylonium_tpu.ops.match_table import pair_counts_numpy
 from phylonium_tpu.ops.shapes import pack_states
 from phylonium_tpu_torch.core.stream import DeviceRowFeeder
 from phylonium_tpu_torch.ops import pair_count, pileup_device
-from phylonium_tpu_torch.ops.states import packed_width
+from phylonium_tpu_torch.ops.states import pack_rows, packed_width
 from pileup_cases import EDGE_CASES, panel, write_fasta_panel
 
 
@@ -156,3 +156,63 @@ def test_streamed_and_lowmem_cli_on_card(card, tmp_path, monkeypatch):
     assert rc == 0 and low == serial
     assert LAST_RUN_INFO["compare_carrier"] == "cuda-kernel"
     assert LAST_RUN_INFO["build_kernel_launches"] == LAST_RUN_INFO["stream_groups"] == 1
+
+
+def _mapped_complete_deletion(tmp_path):
+    """A small panel of drafts mapped natively by the port, after
+    complete deletion: (queries, homologies, ref_len)."""
+    from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
+    from phylonium_tpu_torch.core.complete_deletion import complete_delete
+    from phylonium_tpu_torch.core.map_native import map_batch_native
+    from phylonium_tpu_torch.data.sequence import gc_content, join
+    from phylonium_tpu_torch.index.esa import ESAIndex
+    from phylonium_tpu_torch.io.fasta import read_genome
+    from phylonium_tpu_torch.utils.progress import ProgressBar
+
+    files = write_fasta_panel(tmp_path, 11, 20_000, seed=7, contigs=3)
+    genomes = [join(read_genome(f)) for f in files]
+    ref = ESAIndex(genomes[0], backend="native")
+    threshold = min_anchor_length(0.025, gc_content(genomes[0].nucl), ref.size)
+    queries = [g.as_array() for g in genomes]
+    bar = ProgressBar("", len(queries), enabled=False)
+    homologies = complete_delete(
+        map_batch_native(ref._native, queries, threshold, bar, 0)
+    )
+    return queries, homologies, len(genomes[0])
+
+
+@pytest.mark.cuda
+def test_device_pileup_panel_equals_plain_and_host(card, tmp_path, monkeypatch):
+    """The serial path's device pileup (X2) through the kernel, with
+    complete-deletion homologies: equal to the plain route's panel and to
+    the host pileup, packed; one launch a group."""
+    queries, homologies, ref_len = _mapped_complete_deletion(tmp_path)
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM_GROUP", "4")
+    launches = pileup_device.KERNEL_LAUNCHES
+    got = pileup_device.build_pileup_device(queries, homologies, ref_len, card)
+    assert pileup_device.KERNEL_LAUNCHES - launches == 3
+    plain = pileup_device.build_pileup_device(
+        queries, homologies, ref_len, torch.device("cpu")
+    )
+    assert torch.equal(got.cpu(), plain)
+    host = pack_rows(build_pileup(queries, homologies, ref_len))
+    assert np.array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.cuda
+def test_device_pileup_cli_on_card(card, tmp_path, monkeypatch):
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+
+    files = write_fasta_panel(tmp_path, 7, 20_000, seed=6, contigs=2)
+    for flags in ([], ["--complete-deletion"]):
+        monkeypatch.delenv("PHYLONIUM_TPU_DEVICE_PILEUP", raising=False)
+        rc, serial = _cli([*flags, *files])
+        assert rc == 0 and LAST_RUN_INFO["build_kernel_launches"] == 0
+        monkeypatch.setenv("PHYLONIUM_TPU_DEVICE_PILEUP", "1")
+        monkeypatch.setenv("PHYLONIUM_TPU_STREAM_GROUP", "3")
+        rc, device = _cli([*flags, *files])
+        assert rc == 0 and device == serial
+        assert LAST_RUN_INFO["build_kernel_launches"] == 3
+        assert LAST_RUN_INFO["build_plain_calls"] == 0
+        assert LAST_RUN_INFO["compare_carrier"] == "cuda-kernel"
+        assert LAST_RUN_INFO["kernel_launches"] == pair_count.LAUNCHES_PER_CALL

@@ -184,7 +184,8 @@ def main() -> int:
     from phylonium_tpu_torch.ops import _build
     from phylonium_tpu_torch.utils.platform import nvidia_smi_line
 
-    print(f"  CXX={chip_smoke.pick_host_compiler()}", flush=True)
+    native = chip_smoke.port_host_library()
+    print(f"  host library built with {native['compiler']}", flush=True)
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         old, old_log = build_old(sys.argv[1:], tmp)
