@@ -71,7 +71,27 @@ non-zero exit and no result line:
     idle share, and whether the feeder worker's ranges are in the trace;
 14. low-memory end to end: a 1000 x 1 Mbp panel through the port's CLI
     with ``PHYLONIUM_TPU_LOWMEM=force`` and with the serial pipeline, each
-    in a child process whose peak RSS is printed, byte for byte.
+    in a child process whose peak RSS is printed, byte for byte;
+15. the X5 shard kernel (``pt_diagonal_neq_shard``): at the edges of
+    tests/extend_cases.py split into 2, 3 and 4 shards, each shard's words
+    against its plain version and their OR against the unsharded kernel
+    (K3); then at phase 6's production shapes, 128 x 2^19 and 8 x 2^19 over
+    a 5 Mbp genome's doubled text in 4 shards on the card, word for word
+    against the plain version and K3, with the times and the bound;
+16. hybrid mapping with X5: phase 8's 8 x 5 Mbp panel through the port's
+    CLI with ``PHYLONIUM_TPU_SHARDED_EXTEND=1`` and ``shard_devices``
+    patched to four shards on the card, byte for byte against the
+    reference CLI, every round through the shard kernel;
+17. the counting mesh (X3s): the per-rank pair count at the 2 x 2 mesh's
+    cell shape of the 29 x 5 Mbp panel against its plain version and
+    ``torch._int_mm``, with times and bound; a 1-rank NCCL world (a child
+    process) counting 600 x 1 Mbp with ``pair_counts_sharded``, equal to
+    ``pair_counts_rows``; then a gloo world of 4 rank processes sharing
+    the card runs the 29 x 5 Mbp panel through the port's CLI with
+    ``--mesh 2,2``: rank 0's stdout must equal phase 7's JAX host-counted
+    output byte for byte, the other ranks print nothing, and each rank's
+    phase timings, pair-count launches and collective bytes (predicted and
+    measured) are printed.
 
 The last lines are the kernel table as JSON (per kernel: launches on its
 main path, the largest error, the kernel's, the plain version's and the
@@ -114,6 +134,12 @@ BUILD_SOURCE = "phylonium_tpu_torch/csrc/pileup_build.cu"
 # the XLA program of the streamed feeder, and its build core
 BUILD_REPLACES = "phylonium_tpu/ops/pileup_device.py:198"
 BUILD_ALSO_REPLACES = "phylonium_tpu/ops/pileup_device.py:124"
+
+SHARD_REPLACES = "phylonium_tpu/ops/anchor_extend_sharded.py:58"
+SHARDS = 4  # X5's shards on the one card
+SHARD_TILE = 2048  # the hybrid mapper's halo (core/hybrid_map.py _TILE)
+
+MESH_REPLACES = "phylonium_tpu/parallel/distributed.py:34"
 
 INVALID = 10
 
@@ -677,7 +703,7 @@ def end_to_end(device_name: str, files: list[str], tmp: str) -> dict:
         f"phases {json.dumps(timings)}", flush=True,
     )
     return {"launches": launches, "carrier": info["compare_carrier"],
-            "plain_calls": pair_count.PLAIN_CALLS}
+            "plain_calls": pair_count.PLAIN_CALLS, "reference": reference}
 
 
 def end_to_end_hybrid(device_name: str, n: int = 8, length: int = 5_000_000) -> dict:
@@ -729,7 +755,7 @@ def end_to_end_hybrid(device_name: str, n: int = 8, length: int = 5_000_000) -> 
         flush=True,
     )
     return {"launches": launches, "rounds": info["map_rounds"],
-            "timings": timings, "wall": wall}
+            "timings": timings, "wall": wall, "reference": reference}
 
 
 def build_inputs(device, queries, homologies, ref_len):
@@ -894,9 +920,14 @@ def env_set(**values):
 
 
 def zero_counts() -> None:
-    from phylonium_tpu_torch.ops import anchor_extend, pair_count, pileup_device
+    from phylonium_tpu_torch.ops import (
+        anchor_extend,
+        anchor_extend_sharded,
+        pair_count,
+        pileup_device,
+    )
 
-    for module in (anchor_extend, pair_count, pileup_device):
+    for module in (anchor_extend, anchor_extend_sharded, pair_count, pileup_device):
         module.KERNEL_LAUNCHES = 0
         module.PLAIN_CALLS = 0
 
@@ -1210,6 +1241,388 @@ def end_to_end_lowmem(device_name: str, n: int = 1000, length: int = 1_000_000) 
             "wall": {"lowmem": low["wall"], "serial": serial["wall"]}}
 
 
+def bits_differ(x, y, what: str) -> int:
+    """0 when the word tensors ``x`` and ``y`` are equal; raises otherwise."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    if x.shape != y.shape:
+        raise AssertionError(f"{what}: {tuple(x.shape)} words against {tuple(y.shape)}")
+    diff = int(np.unpackbits((x ^ y).cpu().numpy().view(np.uint8)).sum())
+    if diff:
+        raise AssertionError(f"{what}: {diff} bits differ")
+    return 0
+
+
+def check_shard_edges(device, tile: int = 64) -> int:
+    """The shard kernel at tests/extend_cases.py's edges in 2, 3 and 4
+    shards: each shard's words == its plain version's, their OR == K3."""
+    import numpy as np
+
+    from phylonium_tpu_torch.ops import anchor_extend, anchor_extend_sharded as aes
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from extend_cases import CASES, texts_on
+
+    for name, make in CASES.items():
+        ha, hb, off_a, off_b, lim_a, lim_b, length = make(
+            np.random.default_rng(sum(map(ord, name))))
+        a, b = texts_on(device, ha, hb, 0)
+        jobs = anchor_extend._job_tensor(a, b, off_a, off_b, lim_a, lim_b)
+        k3 = anchor_extend._launch(a, b, jobs, length)
+        for n_shards in (2, 3, 4):
+            host = aes.shard_text(ha, n_shards, tile)
+            width = host.shape[1] - tile
+            merged = None
+            for s, shard in enumerate(aes.place(host, [device] * n_shards)):
+                own_end = aes._own_end(s, n_shards, width)
+                got = aes._launch(shard, s * width, own_end, b, jobs, length)
+                plain = aes.diagonal_neq_shard_reference(shard, s * width, own_end, b,
+                                                         jobs, length)
+                bits_differ(got, plain, f"{name}, shard {s} of {n_shards}")
+                merged = got if merged is None else merged | got
+            bits_differ(merged, k3, f"{name}, {n_shards} shards against K3")
+        print(f"  shard edge {name} ({len(off_a)} jobs x {length}) in 2, 3 and 4 "
+              "shards: kernel == plain, OR == K3", flush=True)
+    return 0
+
+
+def check_shard_production(device) -> dict:
+    """The shard kernel at phase 6's two production shapes, the doubled
+    5 Mbp text in SHARDS shards on ``device``: the merged words == the plain
+    version's == K3's, with the sharded call's, the plain version's and
+    K3's times and the bound (K3's plus the merge's words)."""
+    from phylonium_tpu_torch.ops import anchor_extend, anchor_extend_sharded as aes
+
+    out = {}
+    devices = [device] * SHARDS
+    for name, (x, y, oa, ob, la, lb) in extend_shapes(device).items():
+        host = aes.shard_text(x.cpu().numpy(), SHARDS, SHARD_TILE)
+        width = host.shape[1] - SHARD_TILE
+        shards = aes.place(host, devices)
+        jobs_dev = anchor_extend._job_tensor(x, y, oa, ob, la, lb)
+        args = (shards, [y] * SHARDS, [jobs_dev] * SHARDS, CHUNK, width)
+        got = aes.merge(*args, aes._launch)
+        plain = aes.merge(*args, aes.diagonal_neq_shard_reference)
+        k3 = anchor_extend._launch(x, y, jobs_dev, CHUNK)
+        err = max(bits_differ(got, plain, f"shard production {name} against plain"),
+                  bits_differ(got, k3, f"shard production {name} against K3"))
+        del got, plain, k3
+        ms = time_ms(lambda: aes.merge(*args, aes._launch), reps=20)
+        plain_ms = time_ms(lambda: aes.merge(*args, aes.diagonal_neq_shard_reference), reps=2)
+        k3_ms = time_ms(lambda: anchor_extend._launch(x, y, jobs_dev, CHUNK), reps=20)
+        jobs = len(oa)
+        k3_bound, _ = extend_bound(jobs_dev, oa, ob, la, lb)
+        merge_bytes = (SHARDS - 1) * jobs * (CHUNK // 32) * 4
+        bound_ms, bound_by = bound(k3_bound * 1e-3 * HBM_BYTES_S + merge_bytes)
+        print(f"  shard production {name} {jobs} x {CHUNK} in {SHARDS} shards of "
+              f"{width} bytes: kernel == plain == K3; sharded call ({SHARDS} launches "
+              f"and the OR) {ms:.4f} ms, plain {plain_ms:.3f} ms, unsharded K3 "
+              f"{k3_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; K3's "
+              f"{k3_bound:.4f} ms and {merge_bytes} merge bytes)", flush=True)
+        out[name] = {"jobs": jobs, "ms": ms, "plain_ms": plain_ms, "k3_ms": k3_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    return out
+
+
+def end_to_end_hybrid_sharded(device_name: str, reference: bytes, n: int = 8,
+                              length: int = 5_000_000) -> dict:
+    """Phase 8's panel with the index text in SHARDS shards on the card
+    (X5): byte for byte against the reference CLI's output, every round
+    through the shard kernel."""
+    from phylonium_tpu_torch.ops import anchor_extend_sharded as aes
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_x5_") as tmp:
+        files = write_fasta(eco29_panel(n, length, seed=8, low=0.002, span=0.018), tmp)
+        args = ["--progress=never", "--map-backend", "hybrid", "--device", device_name,
+                *files]
+        saved = aes.shard_devices
+        aes.shard_devices = lambda device: [device] * SHARDS
+        try:
+            r = port_run(args, PHYLONIUM_TPU_SHARDED_EXTEND="1", PHYLONIUM_TPU_STREAM=None,
+                         PHYLONIUM_TPU_DEVICE_PILEUP=None)
+        finally:
+            aes.shard_devices = saved
+        launches = aes.KERNEL_LAUNCHES
+    info = r["info"]
+    if r["out"].encode() != reference:
+        raise AssertionError("the X5 hybrid output differs from the JAX package's")
+    if "jax" in sys.modules:
+        raise AssertionError("the X5 hybrid run imported jax")
+    if (launches < SHARDS or launches % SHARDS or info["shard_kernel_launches"] != launches
+            or info["shard_plain_calls"] or info["extend_kernel_launches"]
+            or info["extend_plain_calls"]):
+        raise AssertionError(f"X5 hybrid run: {launches} shard launches, {info}")
+    print(f"  X5 hybrid e2e {n} x {length}, index text in {SHARDS} shards on the card: "
+          f"byte-identical to the JAX package's native-mapped host count; "
+          f"{launches} shard launches in {info['map_rounds']} rounds, 0 unsharded "
+          f"launches; wall {r['wall']:.3f} s, phases {json.dumps(r['timings'])}",
+          flush=True)
+    return {"launches": launches, "rounds": info["map_rounds"], "wall": r["wall"]}
+
+
+def int_mm_rect_ms(a, b, check) -> float:
+    """``torch._int_mm`` on the one-hot operands of ``a`` against ``b``,
+    padded to the multiples it asks for; checked against ``check``."""
+    import torch
+
+    from phylonium_tpu_torch.ops.match_matrix import onehot_operands
+
+    na, nb = a.shape[0], b.shape[0]
+    ops_a, ops_b = onehot_operands(a, b)
+    pad_a = max(24, -(-na // 8) * 8) - na
+    pad_b = -(-2 * nb // 8) * 8 - 2 * nb
+    ops_a = torch.nn.functional.pad(ops_a, (0, 0, 0, pad_a))
+    ops_b = torch.nn.functional.pad(ops_b, (0, 0, 0, pad_b))
+    out = torch._int_mm(ops_a, ops_b.T)
+    matches, homs = check
+    if not (torch.equal(out[:na, :nb].to(torch.int64), matches)
+            and torch.equal(out[:na, nb : 2 * nb].to(torch.int64), homs)):
+        raise AssertionError("torch._int_mm on the shard's one-hot operands disagrees")
+    del out
+    ms = time_ms(lambda: torch._int_mm(ops_a, ops_b.T))
+    del ops_a, ops_b
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_mesh_shard(device, n: int = 29, length: int = 5_000_000,
+                     shape: tuple[int, int] = (2, 2), seed: int = 17) -> dict:
+    """The pair count at the cell shape rank (0, 0) of a ``shape`` mesh
+    gives it on an ``n`` x ``length`` panel: its row block against the
+    gathered rows of its column shard, non-symmetric; kernel == plain ==
+    ``torch._int_mm``, with times and the bound of that work."""
+    import numpy as np
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+    from phylonium_tpu_torch.ops.match_table import MATCH_PLANES
+    from phylonium_tpu_torch.ops.shapes import pack_states
+    from phylonium_tpu_torch.ops.states import to_device
+    from phylonium_tpu_torch.parallel.distributed import sharded_shape
+
+    rows, cols = shape
+    n_pad, lc, l_pad = sharded_shape(n, length, rows, cols)
+    nr = n_pad // rows
+    packed = pack_states(random_states(np.random.default_rng(seed), n, length), n_pad, l_pad)
+    mine = to_device(np.ascontiguousarray(packed[:nr, :lc]), device)
+    everyone = to_device(np.ascontiguousarray(packed[:, :lc]), device)
+    del packed
+    m, h = pair_count.cross_counts(mine, everyone, symmetric=False)
+    mr, hr = cross_counts_reference(mine, everyone)
+    err = max(compare(m, mr, False), compare(h, hr, False))
+    library_ms = int_mm_rect_ms(mine, everyone, (mr, hr))
+    del m, h, mr, hr
+    ms = time_ms(lambda: pair_count.cross_counts(mine, everyone, symmetric=False))
+    plain_ms = time_ms(lambda: cross_counts_reference(mine, everyone))
+    # every cell of the block, one multiply-add a cell and state for each
+    # match plane and one for validity, over the shard's real states; the
+    # two operands read once, two int32 [nr, n_pad] outputs written
+    real_rows = min(nr, n)
+    states_per_row = -(-length // cols)
+    macs = len(MATCH_PLANES) + 1
+    bound_ms, bound_by = bound(mine.numel() + everyone.numel() + 2 * 4 * nr * n_pad,
+                               2 * macs * real_rows * n * states_per_row)
+    print(f"  mesh shard {rows}x{cols} of {n} x {length}: [{nr}, {lc}] x [{n_pad}, {lc}] "
+          f"bytes, kernel == plain == torch._int_mm; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, torch._int_mm {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {100 * bound_ms / ms:.1f} % of the bound", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "cell": [nr, lc]}
+
+
+_NCCL_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from chip_smoke import random_states
+from phylonium_tpu_torch.ops import pair_count
+from phylonium_tpu_torch.ops.states import pack_rows, to_device
+from phylonium_tpu_torch.parallel.distributed import (
+    LAST_COMM,
+    comm_account,
+    pair_counts_sharded,
+)
+from phylonium_tpu_torch.parallel.mesh import make_mesh
+from phylonium_tpu_torch.parallel.multihost import initialize_distributed
+
+initialize_distributed(sys.argv[4], init_method="file://" + sys.argv[1], world_size=1,
+                       rank=0, timeout=300)
+n, length = int(sys.argv[2]), int(sys.argv[3])
+states = random_states(np.random.default_rng(2), n, length)
+mesh = make_mesh((1, 1), sys.argv[5])
+pair_count.KERNEL_LAUNCHES = 0
+t0 = time.perf_counter()
+got = pair_counts_sharded(states, mesh)
+sharded_s = time.perf_counter() - t0
+launches = pair_count.KERNEL_LAUNCHES
+first_steps = dict(LAST_COMM["seconds"])
+# a second call: the communicators are up now
+t0 = time.perf_counter()
+again = pair_counts_sharded(states, mesh)
+again_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+want = pair_count.pair_counts_rows(to_device(pack_rows(states), mesh.device))
+rows_s = time.perf_counter() - t0
+print(json.dumps({
+    "equal": all(np.array_equal(g, w) for g, w in zip(got, want))
+             and all(np.array_equal(g, w) for g, w in zip(again, want)),
+    "again_s": again_s, "steps": first_steps, "steps_again": LAST_COMM["seconds"],
+    "backend": mesh.backend, "device": str(mesh.device), "launches": launches,
+    "sharded_s": sharded_s, "rows_s": rows_s,
+    "comm": comm_account(n, length, mesh), "jax": "jax" in sys.modules,
+}))
+dist.destroy_process_group()
+"""
+
+_RANK_CHILD = """
+import json, sys
+from phylonium_tpu_torch.parallel.multihost import initialize_distributed
+
+rank, size, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+initialize_distributed("gloo", init_method="file://" + store, world_size=size,
+                       rank=rank, timeout=600)
+from phylonium_tpu_torch.cli import main
+from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+rc = main(sys.argv[4:])
+print(json.dumps({"rc": rc, "jax": "jax" in sys.modules, "info": LAST_RUN_INFO}),
+      file=sys.stderr)
+import torch.distributed as dist
+dist.destroy_process_group()
+sys.exit(rc)
+"""
+
+
+def run_ranks(code: str, argvs: list[list[str]], cwd: str, timeout: float) -> list[dict]:
+    """One child process an argv, all started together, each in a process
+    group of its own; returns each one's exit code, stdout and stderr.
+    Every child is stopped before this returns."""
+    import signal
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    procs, files = [], []
+    try:
+        for k, argv in enumerate(argvs):
+            out = open(os.path.join(cwd, f"rank{k}.out"), "wb")
+            err = open(os.path.join(cwd, f"rank{k}.err"), "wb")
+            files += [out, err]
+            procs.append(subprocess.Popen([sys.executable, "-c", code, *argv], cwd=cwd,
+                                          env=env, stdout=out, stderr=err,
+                                          start_new_session=True))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in files:
+            f.close()
+    results = []
+    for k, p in enumerate(procs):
+        with open(os.path.join(cwd, f"rank{k}.out"), "rb") as f:
+            out = f.read()
+        with open(os.path.join(cwd, f"rank{k}.err"), "rb") as f:
+            err = f.read().decode(errors="replace")
+        results.append({"rc": p.returncode, "out": out, "err": err})
+    return results
+
+
+def mesh_nccl(n: int = 600, length: int = 1_000_000, backend: str = "nccl",
+              device_name: str = "cuda") -> dict:
+    """pair_counts_sharded in a 1-rank NCCL world (a child process) at
+    ``n`` x ``length``: equal to pair_counts_rows, bit for bit."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        (r,) = run_ranks(_NCCL_CHILD, [[os.path.join(tmp, "store"), str(n), str(length),
+                                        backend, device_name]], tmp, timeout=600)
+    if r["rc"] != 0:
+        raise RuntimeError(f"the NCCL child exited {r['rc']}: {r['err'][-3000:]}")
+    result = json.loads(r["out"].decode().strip().splitlines()[-1])
+    comm = result["comm"]
+    if (not result["equal"] or result["jax"] or result["backend"] != backend
+            or result["launches"] < 1
+            or any(comm[f"measured_{k}"] != comm[f"predicted_{k}"]
+                   for k in ("gather_recv_bytes", "psum_bytes", "result_gather_recv_bytes"))):
+        raise AssertionError(f"the 1-rank NCCL world: {result}")
+    print(f"  1-rank {backend} world, {n} x {length}: pair_counts_sharded == "
+          f"pair_counts_rows bit for bit on {result['device']}; {result['launches']} "
+          f"pair-count launches; sharded {result['sharded_s']:.3f} s (steps "
+          f"{json.dumps(result['steps'])}), again {result['again_s']:.3f} s (steps "
+          f"{json.dumps(result['steps_again'])}), one-device {result['rows_s']:.3f} s "
+          f"(host pack and copy included); collective bytes {json.dumps(comm)}",
+          flush=True)
+    return result
+
+
+def mesh_world(files: list[str], reference: bytes, shape: tuple[int, int] = (2, 2),
+               device_name: str = "cuda") -> dict:
+    """The panel in ``files`` through the port's CLI with ``--mesh R,C`` in a
+    gloo world of R*C rank processes sharing the card: rank 0's stdout ==
+    ``reference`` byte for byte, the other ranks print nothing, every rank
+    counted on the mesh with the kernel."""
+    import torch
+
+    size = shape[0] * shape[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        store = os.path.join(tmp, "store")
+        args = ["--progress=never", "-v", "-v", "--device", device_name, "--mesh",
+                f"{shape[0]},{shape[1]}", *files]
+        t0 = time.perf_counter()
+        ranks = run_ranks(_RANK_CHILD, [[str(k), str(size), store, *args]
+                                        for k in range(size)], tmp, timeout=900)
+        wall = time.perf_counter() - t0
+    from phylonium_tpu_torch.utils.platform import carrier
+
+    want_carrier = carrier(torch.device(device_name))
+    # the kernel's launches on a card; its plain version's calls on the CPU
+    ran, other = (("kernel_launches", "plain_calls") if want_carrier == "cuda-kernel"
+                  else ("plain_calls", "kernel_launches"))
+    reports = []
+    for k, r in enumerate(ranks):
+        if r["rc"] != 0:
+            raise RuntimeError(f"rank {k} exited {r['rc']}: {r['err'][-3000:]}")
+        reports.append(json.loads(r["err"].strip().splitlines()[-1]))
+    if ranks[0]["out"] != reference:
+        raise AssertionError("the mesh run's rank 0 output differs from the JAX package's")
+    if any(r["out"] for r in ranks[1:]):
+        raise AssertionError("a rank other than 0 printed to stdout")
+    launches = 0
+    for k, (r, rep) in enumerate(zip(ranks, reports)):
+        info = rep["info"]
+        mesh, comm = info.get("mesh", {}), info.get("mesh", {}).get("comm", {})
+        line = f"mapping sharded: process {k}/{size} mapped"
+        if (rep["jax"] or info["compare_carrier"] != "mesh" or mesh["rank"] != k
+                or mesh["shape"] != list(shape) or mesh["backend"] != "gloo"
+                or mesh["shard_carrier"] != want_carrier or info[ran] < 1
+                or info[other] or line not in r["err"]
+                or any(comm[f"measured_{key}"] != comm[f"predicted_{key}"]
+                       for key in ("gather_recv_bytes", "psum_bytes",
+                                   "result_gather_recv_bytes"))):
+            raise AssertionError(f"rank {k}: {info}")
+        launches += info[ran]
+        mapped = r["err"][r["err"].index(line):].splitlines()[0]
+        steps = ", ".join(f"{key} {v:.4f}" for key, v in mesh["seconds"].items())
+        print(f"  rank {k} ({mesh['device']}): {mapped}; {info[ran]} "
+              f"pair-count launches; phases {json.dumps(info['timings'])}; compare's "
+              f"steps (s): {steps}; bytes "
+              f"predicted/measured: gather {comm['predicted_gather_recv_bytes']}/"
+              f"{comm['measured_gather_recv_bytes']}, all_reduce "
+              f"{comm['predicted_psum_bytes']}/{comm['measured_psum_bytes']}, result "
+              f"gather {comm['predicted_result_gather_recv_bytes']}/"
+              f"{comm['measured_result_gather_recv_bytes']}", flush=True)
+    print(f"  --mesh {shape[0]},{shape[1]} e2e, {len(files)} genomes in {size} gloo ranks "
+          f"sharing the card: rank 0 byte-identical to the JAX package's host count, "
+          f"the others silent; {launches} pair-count launches in all; wall {wall:.3f} s "
+          "(rank start-up included)", flush=True)
+    return {"launches": launches, "wall": wall,
+            "ranks": [rep["info"]["timings"] for rep in reports]}
+
+
 def main() -> int:
     import torch
 
@@ -1274,6 +1687,7 @@ def main() -> int:
 
         with phase("hybrid end to end"):
             hybrid = end_to_end_hybrid("cuda")
+            torch.cuda.empty_cache()
 
         with phase("build edge shapes"):
             build_worst = check_build_edges(device)
@@ -1304,8 +1718,24 @@ def main() -> int:
         with phase("profile"):
             profile_run("cuda", eco_files, eco_dir, x2["out"])
 
-    with phase("low-memory end to end"):
-        end_to_end_lowmem("cuda")
+        with phase("low-memory end to end"):
+            end_to_end_lowmem("cuda")
+
+        with phase("shard kernel"):
+            shard_worst = check_shard_edges(device)
+            shard = check_shard_production(device)
+            torch.cuda.empty_cache()
+        shard_worst = max([shard_worst] + [v["max_abs_err"] for v in shard.values()])
+
+        with phase("hybrid with X5"):
+            hybrid_x5 = end_to_end_hybrid_sharded("cuda", hybrid["reference"])
+            torch.cuda.empty_cache()
+
+        with phase("mesh"):
+            mesh_cell = check_mesh_shard(device)
+            torch.cuda.empty_cache()
+            nccl = mesh_nccl()
+            mesh = mesh_world(eco_files, e2e["reference"])
 
     print(json.dumps({"kernels": [{
         "name": "pair_count",
@@ -1369,6 +1799,43 @@ def main() -> int:
         "plain_ms_128x1000000": lowmem_group["plain_ms"],
         "bound_ms_128x1000000": lowmem_group["bound_ms"],
         "bound_by_128x1000000": lowmem_group["bound_by"],
+        "build_s": _build.BUILD_INFO["seconds"],
+    }, {
+        "name": "diagonal_neq_shard",
+        "route": "cuda",
+        "source": EXTEND_SOURCE,
+        "replaces": SHARD_REPLACES,
+        "launches": hybrid_x5["launches"],
+        "max_abs_err": shard_worst,
+        "ms": shard["micro"]["ms"],
+        "plain_ms": shard["micro"]["plain_ms"],
+        "bound_ms": shard["micro"]["bound_ms"],
+        "bound_by": shard["micro"]["bound_by"],
+        "library_ms": None,
+        "shape": f"128 x {CHUNK} in {SHARDS} shards",
+        "k3_ms": shard["micro"]["k3_ms"],
+        f"ms_8x{CHUNK}": shard["hybrid"]["ms"],
+        f"plain_ms_8x{CHUNK}": shard["hybrid"]["plain_ms"],
+        f"bound_ms_8x{CHUNK}": shard["hybrid"]["bound_ms"],
+        f"bound_by_8x{CHUNK}": shard["hybrid"]["bound_by"],
+        f"k3_ms_8x{CHUNK}": shard["hybrid"]["k3_ms"],
+        "build_s": _build.BUILD_INFO["seconds"],
+    }, {
+        "name": "pair_count_mesh",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": MESH_REPLACES,
+        "launches": mesh["launches"],
+        "launches_nccl": nccl["launches"],
+        "max_abs_err": mesh_cell["max_abs_err"],
+        "ms": mesh_cell["ms"],
+        "plain_ms": mesh_cell["plain_ms"],
+        "bound_ms": mesh_cell["bound_ms"],
+        "bound_by": mesh_cell["bound_by"],
+        "library_ms": mesh_cell["library_ms"],
+        "library": "torch._int_mm on onehot_operands of the shard",
+        "shape": f"[{mesh_cell['cell'][0]}, {mesh_cell['cell'][1]}] x "
+                 f"[30, {mesh_cell['cell'][1]}] bytes (2x2 mesh, 29 x 5000000)",
         "build_s": _build.BUILD_INFO["seconds"],
     }]}), flush=True)
     print(info["nvidia_smi"].splitlines()[0], flush=True)

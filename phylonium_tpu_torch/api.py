@@ -74,6 +74,7 @@ def distance_matrix(
     complete_deletion: bool = False,
     anchor_p_value: float | None = None,
     count_backend: str = "auto",
+    mesh: str | None = None,
     threads: int | None = None,
 ) -> DistanceResult:
     """Run the full pipeline and return the distance matrix.
@@ -82,7 +83,10 @@ def distance_matrix(
     one genome each. ``device``: torch device of the pair count.
     ``distance``: "jc" | "raw" | "ani". ``reference``: pin the reference
     genome by name (CLI ``-r``); ``two_pass``: recompute against the most
-    central genome (``-2``). Remaining keywords mirror their CLI flags.
+    central genome (``-2``). ``mesh``: "R,C", count on a mesh of
+    torch.distributed ranks (``--mesh``): every rank of a world of R*C
+    ranks calls this function alike and gets the same result. Remaining
+    keywords mirror their CLI flags.
     """
     if distance not in ("jc", "raw", "ani"):
         raise ValueError(
@@ -99,6 +103,8 @@ def distance_matrix(
         cfg.anchor_p_value = anchor_p_value
     cfg.count_backend = count_backend
     cfg.two_pass = two_pass
+    if mesh:
+        cfg.mesh = mesh
     if threads:
         from phylonium_tpu_torch.native import set_threads
 

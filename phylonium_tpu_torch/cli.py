@@ -14,6 +14,12 @@ them. ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
 (both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
 writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
 
+In a torch.distributed world of several ranks (started by the launcher,
+e.g. with ``parallel.multihost.initialize_distributed``, before ``main``
+runs), every rank runs the pipeline and only rank 0 prints the matrix and
+writes the run report; the others return the same code. ``--mesh R,C``
+needs a world of ``R * C`` ranks.
+
 ``parse_args``, ``cleanup_names``, ``usage`` and ``version`` and their
 helpers are a copy of the JAX package's (phylonium_tpu/cli.py:73-353),
 which the port carries instead of importing; their messages and the usage
@@ -33,12 +39,13 @@ import numpy as np
 from phylonium_tpu_torch import __version__
 from phylonium_tpu_torch.config import PROG, ConfigError, TorchRunConfig
 from phylonium_tpu_torch.core.lowmem import should_lowmem
-from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO, process, refuse_unported
+from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO, check_mesh, process
 from phylonium_tpu_torch.core.reference_pick import pick_first_pass, pick_second_pass
 from phylonium_tpu_torch.data.sequence import join
 from phylonium_tpu_torch.io.fasta import read_genome
 from phylonium_tpu_torch.io.phylip import print_matrix
 from phylonium_tpu_torch.native import build as native_build
+from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.utils.platform import resolve_device
 from phylonium_tpu_torch.utils.profile import profiled
 
@@ -64,6 +71,10 @@ Options:
                        on --device), 'host' or 'numpy' (host counters)
       --map-backend=B  Mapping: 'native', 'python', 'hybrid' (host chain,
                        anchor extension on --device), or 'auto' (default)
+      --mesh=R,C       Count on an R x C mesh of torch.distributed ranks
+                       (a world of R*C ranks, one device each, started by
+                       the launcher); every rank maps its share of the
+                       queries, rank 0 prints
       --checkpoint=DIR Reuse/persist anchor-mapping results in DIR
       --profile=DIR    Write a torch.profiler trace of the run to DIR
   -h, --help           This text
@@ -423,7 +434,7 @@ def main(argv: list[str] | None = None) -> int:
     cfg.device = device
 
     try:
-        refuse_unported(cfg)
+        check_mesh(cfg)
         if (cfg.count_backend not in ("numpy", "host")
                 or cfg.map_backend == "hybrid"):
             resolve_device(cfg.device)  # fail before any work
@@ -501,6 +512,11 @@ def main(argv: list[str] | None = None) -> int:
             f"({'built' if info['built'] else 'loaded'}; {info['compiler']})",
             file=sys.stderr,
         )
+
+    # several ranks: every rank computed the same matrix (the count's last
+    # gather hands it to all); only rank 0 prints it and writes the report
+    if world()[1] != 0:
+        return cfg.return_code
 
     names = [q.name for q in queries]
     lengths = np.array([len(q) for q in queries], dtype=np.int64)

@@ -13,13 +13,17 @@ PyTorch version on the CPU), unpacks each row on the host and feeds it
 back, in lockstep rounds until every machine has finished.
 
 The reference text and the concatenated queries go to the device once per
-group of queries. Homology lists are identical to the JAX package's
-hybrid mapper, to its Python oracle (core/anchors.py) and to its native
-mapper.
+group of queries. With ``PHYLONIUM_TPU_SHARDED_EXTEND=1`` and more than one
+local device of ``device``'s type, the reference text goes as shards, one
+a device, and each round's bitmaps come from
+``ops.anchor_extend_sharded.diagonal_neq_sharded`` (X5), equal bit for
+bit. Homology lists are identical to the JAX package's hybrid mapper, to
+its Python oracle (core/anchors.py) and to its native mapper.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -28,7 +32,7 @@ import torch
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.core.homology import Homology
 from phylonium_tpu_torch.index.esa import ESAIndex
-from phylonium_tpu_torch.ops import anchor_extend
+from phylonium_tpu_torch.ops import anchor_extend, anchor_extend_sharded
 
 # query-positions fetched per (query, diagonal) device request
 DEFAULT_CHUNK = 1 << 19
@@ -296,12 +300,26 @@ def hybrid_map_queries(
                 group_bases += len(q)
         return out
 
-    s_dev = _text_on(ref.S, device)
     lengths = np.array([len(q) for q in queries], np.int64)
     bases = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
     q_dev = _text_on(
         np.concatenate(queries) if queries else np.zeros(0, np.uint8), device
     )
+    # PHYLONIUM_TPU_SHARDED_EXTEND=1 splits the index text across every
+    # local device of ``device``'s type (ops/anchor_extend_sharded.py, as
+    # the JAX package's hybrid mapper does over its devices); the shards
+    # and the query copies are placed once for all rounds
+    shard_devs = None
+    if os.environ.get("PHYLONIUM_TPU_SHARDED_EXTEND") == "1":
+        devices = anchor_extend_sharded.shard_devices(device)
+        if len(devices) > 1:
+            shard_devs = devices
+            s_shards = anchor_extend_sharded.place(
+                anchor_extend_sharded.shard_text(ref.S, len(devices), _TILE), devices
+            )
+            q_copies = anchor_extend_sharded.place(q_dev, devices)
+    if shard_devs is None:
+        s_dev = _text_on(ref.S, device)
 
     machines = [_Machine(ref, q, threshold) for q in queries]
     nq = len(machines)
@@ -327,10 +345,18 @@ def hybrid_map_queries(
         length = int(need.max())
         t1 = time.perf_counter()
         host_s += t1 - t0
-        words = anchor_extend.diagonal_neq(
-            s_dev, q_dev, diag + start, bases[blocked] + start,
-            ref.size, bases[blocked] + lengths[blocked], length,
-        ).cpu()
+        if shard_devs is None:
+            words = anchor_extend.diagonal_neq(
+                s_dev, q_dev, diag + start, bases[blocked] + start,
+                ref.size, bases[blocked] + lengths[blocked], length,
+            )
+        else:
+            words = anchor_extend_sharded.diagonal_neq_sharded(
+                s_shards, q_copies, diag + start, bases[blocked] + start,
+                ref.size, bases[blocked] + lengths[blocked], length,
+                shard_devs, _TILE,
+            )
+        words = words.cpu()
         t0 = time.perf_counter()
         device_s += t0 - t1
         rounds += 1

@@ -23,8 +23,8 @@ memory stays bounded and the device still carries the count.
 ``lowmem_budget``, ``should_lowmem``, ``group_rows_for``,
 ``pair_counts_windowed`` and the window helpers are a copy of the JAX
 package's (phylonium_tpu/core/lowmem.py), which the port carries instead
-of importing. The port runs in one process until the mesh is ported, so
-the copy of ``should_lowmem`` has no multi-process carve-out.
+of importing. Like the JAX package's, ``should_lowmem`` keeps a world of
+several ranks on the serial mesh route (parallel/).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from phylonium_tpu_torch.core.pileup import INVALID, N_BASE
 from phylonium_tpu_torch.core.stream import DeviceRowFeeder, effective_group_rows
 from phylonium_tpu_torch.data.sequence import Sequence
 from phylonium_tpu_torch.native import pair_counts_range
+from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.utils.platform import carrier, resolve_device
 from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
@@ -75,6 +76,8 @@ def should_lowmem(n: int, total_bp: int, cfg: RunConfig, ref=None) -> bool:
     if cfg.map_backend not in ("auto", "native"):
         return False
     if ref is not None and ref.backend_name != "native":
+        return False
+    if world()[0] > 1:
         return False
     if env == "force":
         return True

@@ -22,18 +22,33 @@ device the configuration names:
 
 Three paths, one result: each is byte-identical to the others.
 
+In a torch.distributed world of several ranks (parallel/), every rank runs
+the pipeline. Each maps the queries it owns, round-robin, and the
+homology lists are exchanged (parallel/map_shard.py), as the JAX
+package's processes do. The count runs on the ``('rows', 'cols')`` mesh of
+ranks (parallel/distributed.py) under ``--mesh R,C``, which needs a world
+of ``R * C`` ranks, and under 'auto' counting in any world of more than one
+rank (the pod mesh, rows one a host). Every rank ends with the same
+matrix. The streamed and low-memory paths and X2 are single-rank paths
+and yield to the mesh; the JAX package's resident-shard streamed path for
+multi-process runs (parallel/stream_mp.py) is not ported yet, so such runs
+take the serial mesh route, with the same matrix. A single process with
+several cards counts on its one ``--device`` (the JAX package spans its
+local devices in a mesh); the matrix is the same.
+
 Each phase is timed into ``LAST_RUN_INFO["timings"]`` inside a profiler
 range of its name (utils/profile.py), which ``--profile`` traces.
 
-Not carried here: pod and mesh runs (and with them the multi-host
-mapping split), kernel prewarm, link calibration, the host race, the
-early query shipper and the device server. ``--mesh`` is refused.
+Not carried here: kernel prewarm, link calibration, the host race and
+the retry-then-host wrapper, the early query shipper and the device
+server.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -52,7 +67,13 @@ from phylonium_tpu_torch.core.stream import DeviceRowFeeder, map_pileup_streamed
 from phylonium_tpu_torch.data.sequence import Sequence, gc_content
 from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.model.evo import EvoCounts
-from phylonium_tpu_torch.ops import anchor_extend, pair_count, pileup_device
+from phylonium_tpu_torch.ops import (
+    anchor_extend,
+    anchor_extend_sharded,
+    pair_count,
+    pileup_device,
+)
+from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.utils.platform import carrier, resolve_device
 from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
@@ -69,13 +90,50 @@ LAST_RUN_INFO: dict = {}
 
 # the wrappers whose launches and plain calls a run reports, by the key
 # prefix of LAST_RUN_INFO
-_COUNTED = {"": pair_count, "extend_": anchor_extend, "build_": pileup_device}
+_COUNTED = {"": pair_count, "extend_": anchor_extend,
+            "shard_": anchor_extend_sharded, "build_": pileup_device}
 
 
-def refuse_unported(cfg: TorchRunConfig) -> None:
-    """Raise ConfigError for options that reach JAX device code."""
+def _mesh_shape(cfg: TorchRunConfig) -> tuple[int, int]:
+    rows, _, cols = cfg.mesh.partition(",")
+    return int(rows), int(cols or "1")
+
+
+def _mesh_device_count(cfg: TorchRunConfig) -> int:
+    """Ranks the counting mesh spans (0 = the single-device path).
+
+    As the JAX package's (phylonium_tpu/core/pipeline.py:556-565), with
+    ranks for devices: host counting takes no mesh; ``--mesh R,C`` spans
+    ``R * C``; otherwise a world of more than one rank.
+    """
+    if cfg.count_backend in ("numpy", "host"):
+        return 0
     if cfg.mesh:
-        raise ConfigError("--mesh is not supported by the torch port yet")
+        rows, cols = _mesh_shape(cfg)
+        return rows * cols
+    size, _ = world()
+    return size if size > 1 else 0
+
+
+def counts_on_mesh(cfg: TorchRunConfig) -> bool:
+    """Will the count run on the mesh of ranks (JAX :741-770)? Under
+    ``--mesh`` spanning more than one rank, or 'auto' counting in a
+    world of several ranks."""
+    if cfg.mesh:
+        return _mesh_device_count(cfg) > 1
+    return cfg.count_backend == "auto" and world()[0] > 1
+
+
+def check_mesh(cfg: TorchRunConfig) -> None:
+    """Raise ConfigError when ``--mesh R,C`` spans more than one rank and
+    the world does not hold exactly ``R * C`` ranks."""
+    from phylonium_tpu_torch.parallel.mesh import needed_ranks_message
+
+    if cfg.mesh and _mesh_device_count(cfg) > 1:
+        shape = _mesh_shape(cfg)
+        size, _ = world()
+        if shape[0] * shape[1] != size:
+            raise ConfigError(needed_ranks_message(shape, size))
 
 
 def map_queries(
@@ -88,9 +146,10 @@ def map_queries(
     progress bar, and the native (C++/OpenMP, live per-query progress),
     Python and hybrid branches. ``--map-backend hybrid`` computes its
     bitmaps on ``cfg.device`` (core/hybrid_map.py); a failure there raises,
-    and nothing maps on the host in its place. Left out: the multi-host
-    split of the queries, which goes with the mesh, and the fallback from
-    a transient TPU error to the host mapper.
+    and nothing maps on the host in its place. In a world of several
+    ranks each maps the queries it owns and the lists are exchanged
+    (JAX :95-110, :190-200). Left out: the fallback from a transient TPU
+    error to the host mapper.
     """
     n = len(queries)
     homologies: list[list[Homology]] = [None] * n  # type: ignore
@@ -119,6 +178,11 @@ def map_queries(
                 todo.append(j)
             else:
                 homologies[j] = cached
+    # several ranks: map only this rank's queries (round-robin), exchange
+    # after (parallel/map_shard.py)
+    nproc, pid = world()
+    if nproc > 1:
+        todo = [j for j in todo if j % nproc == pid]
     done_base = n - len(todo)
     bar.update(done_base)
 
@@ -173,6 +237,18 @@ def map_queries(
     if ckpt is not None:
         for j in todo:
             ckpt.save(keys[j], homologies[j])
+
+    if nproc > 1:
+        from phylonium_tpu_torch.parallel.map_shard import exchange_homologies
+
+        owned = [j for j in range(n) if j % nproc == pid]
+        homologies = exchange_homologies(homologies, owned)
+        if cfg.verbose >= 2:
+            print(
+                f"mapping sharded: process {pid}/{nproc} mapped "
+                f"{len(todo)} of {n} queries locally",
+                file=sys.stderr,
+            )
     bar.finish()
     return homologies
 
@@ -184,9 +260,11 @@ def pair_counts(
 
     numpy and host are the host counters (the port's copies of the JAX
     package's); auto, device and pallas all count on ``cfg.device``
-    through the port.
+    through the port, or on the mesh of ranks (``counts_on_mesh``).
     """
     backend = cfg.count_backend
+    if counts_on_mesh(cfg):
+        return _pair_counts_mesh(states, cfg)
     if backend == "numpy":
         from phylonium_tpu_torch.ops.match_table import pair_counts_numpy
 
@@ -202,6 +280,43 @@ def pair_counts(
     return pair_count.pair_counts(states, device)
 
 
+def _pair_counts_mesh(
+    states: np.ndarray, cfg: TorchRunConfig
+) -> tuple[np.ndarray, np.ndarray]:
+    """Count over the ('rows', 'cols') mesh of ranks (JAX :607-641).
+
+    Every rank takes part; none retries or counts on the host alone, since
+    a rank that left the collective would stall its peers (JAX :746-749).
+    """
+    from phylonium_tpu_torch.parallel.distributed import (
+        LAST_COMM,
+        comm_account,
+        pair_counts_sharded,
+    )
+    from phylonium_tpu_torch.parallel.mesh import make_mesh
+    from phylonium_tpu_torch.parallel.multihost import make_pod_mesh
+
+    device = resolve_device(cfg.device)
+    t0 = time.perf_counter()
+    if cfg.mesh:
+        check_mesh(cfg)
+        mesh = make_mesh(_mesh_shape(cfg), device)
+    else:
+        mesh = make_pod_mesh(device=device)
+    setup_s = time.perf_counter() - t0
+    counts = pair_counts_sharded(states, mesh)
+    LAST_RUN_INFO["compare_carrier"] = "mesh"
+    LAST_RUN_INFO["mesh"] = {
+        "shape": list(mesh.shape), "rank": mesh.rank, "backend": mesh.backend,
+        "device": str(mesh.device), "shard_carrier": carrier(mesh.device),
+        "comm": comm_account(*states.shape, mesh),
+        # host seconds: the mesh's groups (made once a process), then the
+        # steps of the sharded count
+        "seconds": {"setup": setup_s, **LAST_COMM["seconds"]},
+    }
+    return counts
+
+
 def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
     """Take the streamed path (core/stream.py)?
 
@@ -210,13 +325,13 @@ def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
     package's automatic gate is a model of the TPU link and does not
     carry over; one for the H100 is work for later.) Even when forced,
     the structural conditions of the JAX package's ``_should_stream``
-    hold: 'auto' counting, no mesh, none of complete deletion, ``-p`` or
-    checkpoints (each needs the whole homology set first), and native
-    mapping on a native index.
+    hold: 'auto' counting, no mesh and a world of one rank, none of
+    complete deletion, ``-p`` or checkpoints (each needs the whole homology
+    set first), and native mapping on a native index.
     """
     if os.environ.get("PHYLONIUM_TPU_STREAM", "") != "force":
         return False
-    if cfg.count_backend != "auto" or cfg.mesh:
+    if cfg.count_backend != "auto" or cfg.mesh or world()[0] > 1:
         return False
     if cfg.complete_deletion or cfg.print_positions or cfg.checkpoint_dir:
         return False
@@ -231,12 +346,16 @@ def device_pileup(cfg: TorchRunConfig) -> bool:
     Opt-in, as in the JAX package (phylonium_tpu/core/pipeline.py:1173-1181):
     ``PHYLONIUM_TPU_DEVICE_PILEUP=1``, the count on the device (auto,
     device or pallas) and no ``-p``, which needs the host matrix. Any map
-    backend and checkpoints are allowed.
+    backend and checkpoints are allowed. A count on the mesh of ranks packs
+    each rank's cell from the host pileup, so it takes the host pileup
+    (the JAX package builds X2's states and hands them to its mesh; the
+    matrix is the same).
     """
     return (
         os.environ.get("PHYLONIUM_TPU_DEVICE_PILEUP") == "1"
         and cfg.count_backend in ("auto", "device", "pallas")
         and not cfg.print_positions
+        and not counts_on_mesh(cfg)
     )
 
 
@@ -319,7 +438,7 @@ def _lowmem(ref, threshold, queries, cfg, timings) -> tuple:
 def process(
     subject: Sequence, queries: list[Sequence], cfg: TorchRunConfig
 ) -> EvoCounts:
-    refuse_unported(cfg)
+    check_mesh(cfg)
     LAST_RUN_INFO.clear()
     before = {
         prefix: (module.KERNEL_LAUNCHES, module.PLAIN_CALLS)
@@ -356,6 +475,8 @@ def process(
             f"{LAST_RUN_INFO['map_carrier']} mapped, "
             f"{LAST_RUN_INFO['extend_kernel_launches']} extend launches, "
             f"{LAST_RUN_INFO['extend_plain_calls']} extend plain calls, "
+            f"{LAST_RUN_INFO['shard_kernel_launches']} shard launches, "
+            f"{LAST_RUN_INFO['shard_plain_calls']} shard plain calls, "
             f"{LAST_RUN_INFO['map_rounds']} map rounds; "
             f"{LAST_RUN_INFO['stream_groups']} stream groups, "
             f"{LAST_RUN_INFO['build_kernel_launches']} build launches, "

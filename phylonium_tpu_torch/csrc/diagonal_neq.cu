@@ -45,6 +45,15 @@
 // The Pallas kernel's roll-and-one-hot-row accumulation and its int32
 // output exist for Mosaic's limits (no i8 vectors, 32-bit roll only) and
 // are not carried over.
+//
+// The second entry, pt_diagonal_neq_shard, replaces the shard step of
+// phylonium_tpu/ops/anchor_extend_sharded.py::_diag_neq_sharded (X5): the
+// index text split into contiguous shards, each with a right halo that it
+// reads but does not own. The JAX op owns `tile`-byte rounds and merges
+// the shards with a psum; here the unit of ownership is one output word,
+// and the merge is an OR of the shards' rows (ops/anchor_extend_sharded.py).
+// It is the same kernel: a call that owns every word is K3. Its bound is
+// K3's for the same jobs plus the merge, (S - 1) rows of words per job.
 
 #include <cstdint>
 
@@ -122,8 +131,19 @@ __device__ __forceinline__ uint32_t neq_word(const uint8_t* pa,
   return bits;
 }
 
+// One kernel serves K3 and X5's shard step. `a` holds the global text
+// positions [base, base + a_len) of the index text: all of it for K3
+// (base 0), one shard and its right halo for X5. A word of a job's row is
+// computed only by the call that owns it, the call whose range
+// [base, own_end) holds the global position of the word's first byte,
+// off_a[j] + 32 w; every other word is written 0. The owner applies the
+// limits, so ORing the rows of calls whose ranges partition [0, inf) gives
+// the row of one unsharded call, bit for bit. An owned word reads at most
+// 31 bytes past own_end, which the caller's halo covers; reads are bounded
+// by the buffer in any case, and positions past it are mismatches.
 __global__ void __launch_bounds__(kThreads)
-diagonal_neq_kernel(const uint8_t* __restrict__ a, int64_t a_len,
+diagonal_neq_kernel(const uint8_t* __restrict__ a, int64_t base,
+                    int64_t a_len, int64_t own_end,
                     const uint8_t* __restrict__ b, int64_t b_len,
                     const int64_t* __restrict__ off_a,
                     const int64_t* __restrict__ off_b,
@@ -139,28 +159,55 @@ diagonal_neq_kernel(const uint8_t* __restrict__ a, int64_t a_len,
     const int64_t ob = off_b[j];
     // positions i < valid read a byte of both texts; every later one is
     // past a limit or a text end and is a mismatch (valid may be < 0)
-    const int64_t valid = min64(min64(lim_a[j], a_len) - oa,
+    const int64_t valid = min64(min64(lim_a[j], base + a_len) - oa,
                                 min64(lim_b[j], b_len) - ob);
     const int64_t end = min64(valid, length);
+    // this job's diagonal in the buffer's coordinates
+    const int64_t la = oa - base;
     uint32_t* row = out + j * words;
     for (int64_t w = first_word; w < words; w += word_step) {
       const int64_t i0 = w * 32;
+      if (oa + i0 < base || oa + i0 >= own_end) {
+        row[w] = 0;  // another call's word
+        continue;
+      }
       // positions of this word that read the texts, and that lie in the row
       const int64_t n_read = end - i0 < 0 ? 0 : min64(end - i0, 32);
       const int64_t n_row = min64(length - i0, 32);
       uint32_t bits = 0;
-      if (n_read == 32 && cover_inside(a + oa + i0, a, a_len) &&
+      if (n_read == 32 && cover_inside(a + la + i0, a, a_len) &&
           cover_inside(b + ob + i0, b, b_len)) {
-        bits = neq_word(a + oa + i0, b + ob + i0);
+        bits = neq_word(a + la + i0, b + ob + i0);
       } else {
         for (int k = 0; k < n_read; ++k)
-          bits |= static_cast<uint32_t>(a[oa + i0 + k] != b[ob + i0 + k]) << k;
+          bits |= static_cast<uint32_t>(a[la + i0 + k] != b[ob + i0 + k]) << k;
       }
       const uint32_t read_mask = n_read == 32 ? ~0u : (1u << n_read) - 1;
       const uint32_t row_mask = n_row == 32 ? ~0u : (1u << n_row) - 1;
       row[w] = (bits & read_mask) | (~read_mask & row_mask);
     }
   }
+}
+
+int launch(const uint8_t* a, int64_t base, int64_t a_len, int64_t own_end,
+           const uint8_t* b, int64_t b_len, const int64_t* off_a,
+           const int64_t* off_b, const int64_t* lim_a, const int64_t* lim_b,
+           int64_t jobs, int64_t length, int32_t* out_words, void* stream) {
+  if (a_len < 0 || b_len < 0 || jobs < 0 || length < 0 || base < 0 ||
+      own_end < base)
+    return cudaErrorInvalidValue;
+  const int64_t words = (length + 31) / 32;
+  if (jobs == 0 || words == 0) return cudaSuccess;
+  int64_t blocks_x = (words + kThreads - 1) / kThreads;
+  if (blocks_x > kMaxGridX) blocks_x = kMaxGridX;
+  const int64_t blocks_y = jobs < kMaxGridY ? jobs : kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(blocks_x),
+                  static_cast<unsigned>(blocks_y));
+  diagonal_neq_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, base, a_len, own_end, b, b_len, off_a, off_b, lim_a, lim_b, jobs,
+      length, words, reinterpret_cast<uint32_t*>(out_words));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -175,18 +222,24 @@ extern "C" int pt_diagonal_neq(const uint8_t* a, int64_t a_len,
                                const int64_t* lim_a, const int64_t* lim_b,
                                int64_t jobs, int64_t length,
                                int32_t* out_words, void* stream) {
-  if (a_len < 0 || b_len < 0 || jobs < 0 || length < 0)
-    return cudaErrorInvalidValue;
-  const int64_t words = (length + 31) / 32;
-  if (jobs == 0 || words == 0) return cudaSuccess;
-  int64_t blocks_x = (words + kThreads - 1) / kThreads;
-  if (blocks_x > kMaxGridX) blocks_x = kMaxGridX;
-  const int64_t blocks_y = jobs < kMaxGridY ? jobs : kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(blocks_x),
-                  static_cast<unsigned>(blocks_y));
-  diagonal_neq_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      a, a_len, b, b_len, off_a, off_b, lim_a, lim_b, jobs, length, words,
-      reinterpret_cast<uint32_t*>(out_words));
-  return cudaGetLastError();
+  return launch(a, 0, a_len, INT64_MAX, b, b_len, off_a, off_b, lim_a, lim_b,
+                jobs, length, out_words, stream);
+}
+
+// X5's shard step: `shard` holds global positions [base, base + shard_len)
+// of the index text (a shard and its halo); the call owns the words whose
+// first a-position lies in [base, own_end) and writes every other word 0.
+// Offsets and limits are global. Otherwise as pt_diagonal_neq, which is
+// this call with base 0 and own_end INT64_MAX.
+extern "C" int pt_diagonal_neq_shard(const uint8_t* shard, int64_t shard_len,
+                                     int64_t base, int64_t own_end,
+                                     const uint8_t* b, int64_t b_len,
+                                     const int64_t* off_a,
+                                     const int64_t* off_b,
+                                     const int64_t* lim_a,
+                                     const int64_t* lim_b, int64_t jobs,
+                                     int64_t length, int32_t* out_words,
+                                     void* stream) {
+  return launch(shard, base, shard_len, own_end, b, b_len, off_a, off_b,
+                lim_a, lim_b, jobs, length, out_words, stream);
 }

@@ -115,6 +115,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.pt_diagonal_neq_shard.restype = ctypes.c_int
+    lib.pt_diagonal_neq_shard.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
     lib.pt_pileup_build.restype = ctypes.c_int
     lib.pt_pileup_build.argtypes = [
         ctypes.c_void_p, ctypes.c_int64,

@@ -157,4 +157,4 @@ def test_mesh_still_refused(files, capsys):
 
     paths, _ = files
     assert main(["--progress=never", "--device", "cpu", "--mesh", "2,1", *paths]) == 1
-    assert "--mesh is not supported" in capsys.readouterr().err
+    assert "--mesh 2,1 needs 2 ranks" in capsys.readouterr().err
