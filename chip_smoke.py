@@ -66,9 +66,10 @@ non-zero exit and no result line:
     run's phase timings;
 13. ``--profile``: the 29 x 5 Mbp panel with ``--profile=DIR`` and X2 on
     the card; the trace must hold the phase ranges and one device event
-    for each pair-count and pileup-build launch; prints the card's busy
-    time (the union of device kernel intervals), the traced wall and the
-    idle share, and whether the feeder worker's ranges are in the trace;
+    for each pair-count and pileup-build launch, the prewarm's included;
+    prints the card's busy time (the union of device kernel intervals), the
+    traced wall and the idle share, and whether the feeder worker's ranges
+    are in the trace;
 14. low-memory end to end: a 1000 x 1 Mbp panel through the port's CLI
     with ``PHYLONIUM_TPU_LOWMEM=force`` and with the serial pipeline, each
     in a child process whose peak RSS is printed, byte for byte;
@@ -91,7 +92,23 @@ non-zero exit and no result line:
     ``--mesh 2,2``: rank 0's stdout must equal phase 7's JAX host-counted
     output byte for byte, the other ranks print nothing, and each rank's
     phase timings, pair-count launches and collective bytes (predicted and
-    measured) are printed.
+    measured) are printed;
+18. the pod streamed path (``parallel/stream_mp.py``): the pileup-build
+    kernel at one rank's group (8 x 5 Mbp) and the pair count at the
+    (4, 1) mesh's cell of the 29 x 5 Mbp panel, each against its plain
+    version, with times and bound; then the 29 x 5 Mbp panel through the
+    port's CLI without ``--mesh`` in 4 gloo rank processes sharing the
+    card, in turns by the default gate (pod streamed), with
+    ``PHYLONIUM_TPU_STREAM=0`` (the serial pod route) and with
+    ``PHYLONIUM_TPU_STREAM_GROUP=4``: rank 0 byte for byte against
+    phase 7's reference, the others silent, every streamed rank one build
+    launch a group of its block and its pair-count launches, no plain
+    call, collective bytes as predicted, each rank's phases and compare
+    steps and each world's wall printed; the first 5 genomes in 4 ranks
+    under ``PHYLONIUM_TPU_STREAM=force`` (the last rank's block pure
+    padding) against the reference CLI on those files; and a fresh
+    single-process CLI child's device prewarm, its seconds and the run's
+    wait for it.
 
 The last lines are the kernel table as JSON (per kernel: launches on its
 main path, the largest error, the kernel's, the plain version's and the
@@ -142,6 +159,9 @@ SHARD_TILE = 2048  # the hybrid mapper's halo (core/hybrid_map.py _TILE)
 MESH_REPLACES = "phylonium_tpu/parallel/distributed.py:34"
 
 INVALID = 10
+
+# the collective byte counts of parallel/distributed.py's comm_account
+_COMM_KEYS = ("gather_recv_bytes", "psum_bytes", "result_gather_recv_bytes")
 
 
 @contextlib.contextmanager
@@ -1072,7 +1092,8 @@ def interval_union(intervals) -> float:
 def profile_run(device_name: str, files: list[str], tmp: str, expect_out: str) -> dict:
     """The panel through the port's CLI with ``--profile=DIR`` and X2 on
     the card: the trace must hold each phase range once and one device
-    event per pair-count and pileup-build launch. Returns the card's busy
+    event per pair-count and pileup-build launch, the run's and the
+    prewarm's. Returns the card's busy
     time (union of device kernel intervals) within the traced phases, the
     traced wall (start of ``index`` to end of ``compare``) and the idle
     share."""
@@ -1100,11 +1121,15 @@ def profile_run(device_name: str, files: list[str], tmp: str, expect_out: str) -
         raise AssertionError("the trace holds no device events")
     pair = [e for e in kernels if "pair_mma_kernel" in e["name"]]
     build = [e for e in kernels if "pileup_build_kernel" in e["name"]]
-    c = r["counts"]
-    if len(pair) != c["count_launches"] or len(build) != c["build_launches"]:
+    # the run's launches, and the prewarm thread's, which the run's counts
+    # leave out
+    warm = r["info"]["prewarm"]["launches"]
+    want_pair = r["counts"]["count_launches"] + warm.get("pair_count", 0)
+    want_build = r["counts"]["build_launches"] + warm.get("pileup_build", 0)
+    if len(pair) != want_pair or len(build) != want_build:
         raise AssertionError(
             f"trace holds {len(pair)} pair-count and {len(build)} pileup-build "
-            f"kernels for {c['count_launches']} and {c['build_launches']} launches"
+            f"kernels for {want_pair} and {want_build} launches (prewarm's included)"
         )
     start = ranges["index"][0]["ts"]
     end = ranges["compare"][0]["ts"] + ranges["compare"][0]["dur"]
@@ -1125,7 +1150,8 @@ def profile_run(device_name: str, files: list[str], tmp: str, expect_out: str) -
     }
     print(f"  profile {len(files)} genomes with X2: trace {os.path.basename(path)} "
           f"({os.path.getsize(path)} bytes) holds the phase ranges, {len(pair)} "
-          f"pair-count and {len(build)} pileup-build kernel events, "
+          f"pair-count and {len(build)} pileup-build kernel events (prewarm's "
+          f"{json.dumps(warm)} included), "
           f"{len(kernels)} device kernels in all; card busy {result['busy_ms']:.3f} ms "
           f"of a traced wall of {result['wall_s']:.3f} s (idle "
           f"{100 * result['idle']:.3f} %); pair count {result['pair_count_ms']:.3f} ms, "
@@ -1546,8 +1572,7 @@ def mesh_nccl(n: int = 600, length: int = 1_000_000, backend: str = "nccl",
     comm = result["comm"]
     if (not result["equal"] or result["jax"] or result["backend"] != backend
             or result["launches"] < 1
-            or any(comm[f"measured_{k}"] != comm[f"predicted_{k}"]
-                   for k in ("gather_recv_bytes", "psum_bytes", "result_gather_recv_bytes"))):
+            or any(comm[f"measured_{k}"] != comm[f"predicted_{k}"] for k in _COMM_KEYS)):
         raise AssertionError(f"the 1-rank NCCL world: {result}")
     print(f"  1-rank {backend} world, {n} x {length}: pair_counts_sharded == "
           f"pair_counts_rows bit for bit on {result['device']}; {result['launches']} "
@@ -1559,6 +1584,33 @@ def mesh_nccl(n: int = 600, length: int = 1_000_000, backend: str = "nccl",
     return result
 
 
+def rank_world(args: list[str], size: int, reference: bytes, what: str,
+               **env) -> tuple[list[dict], list[dict], float]:
+    """The port's CLI with ``args`` in a gloo world of ``size`` rank
+    processes sharing the card, with ``env`` set (None unsets): rank 0's
+    stdout must be ``reference`` byte for byte and the other ranks print
+    nothing. Returns each rank's exit code, stdout and stderr, each rank's
+    report (its LAST_RUN_INFO) and the world's wall, start-up included."""
+    with env_set(**env), tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        ranks = run_ranks(_RANK_CHILD, [[str(k), str(size), store, *args]
+                                        for k in range(size)], tmp, timeout=900)
+        wall = time.perf_counter() - t0
+    reports = []
+    for k, r in enumerate(ranks):
+        if r["rc"] != 0:
+            raise RuntimeError(f"{what}: rank {k} exited {r['rc']}: {r['err'][-3000:]}")
+        reports.append(json.loads(r["err"].strip().splitlines()[-1]))
+    if ranks[0]["out"] != reference:
+        raise AssertionError(f"{what}: rank 0's output differs from the JAX package's")
+    if any(r["out"] for r in ranks[1:]):
+        raise AssertionError(f"{what}: a rank other than 0 printed to stdout")
+    if any(rep["jax"] for rep in reports):
+        raise AssertionError(f"{what}: a rank imported jax")
+    return ranks, reports, wall
+
+
 def mesh_world(files: list[str], reference: bytes, shape: tuple[int, int] = (2, 2),
                device_name: str = "cuda") -> dict:
     """The panel in ``files`` through the port's CLI with ``--mesh R,C`` in a
@@ -1568,29 +1620,15 @@ def mesh_world(files: list[str], reference: bytes, shape: tuple[int, int] = (2, 
     import torch
 
     size = shape[0] * shape[1]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        store = os.path.join(tmp, "store")
-        args = ["--progress=never", "-v", "-v", "--device", device_name, "--mesh",
-                f"{shape[0]},{shape[1]}", *files]
-        t0 = time.perf_counter()
-        ranks = run_ranks(_RANK_CHILD, [[str(k), str(size), store, *args]
-                                        for k in range(size)], tmp, timeout=900)
-        wall = time.perf_counter() - t0
+    args = ["--progress=never", "-v", "-v", "--device", device_name, "--mesh",
+            f"{shape[0]},{shape[1]}", *files]
+    ranks, reports, wall = rank_world(args, size, reference, "the mesh run")
     from phylonium_tpu_torch.utils.platform import carrier
 
     want_carrier = carrier(torch.device(device_name))
     # the kernel's launches on a card; its plain version's calls on the CPU
     ran, other = (("kernel_launches", "plain_calls") if want_carrier == "cuda-kernel"
                   else ("plain_calls", "kernel_launches"))
-    reports = []
-    for k, r in enumerate(ranks):
-        if r["rc"] != 0:
-            raise RuntimeError(f"rank {k} exited {r['rc']}: {r['err'][-3000:]}")
-        reports.append(json.loads(r["err"].strip().splitlines()[-1]))
-    if ranks[0]["out"] != reference:
-        raise AssertionError("the mesh run's rank 0 output differs from the JAX package's")
-    if any(r["out"] for r in ranks[1:]):
-        raise AssertionError("a rank other than 0 printed to stdout")
     launches = 0
     for k, (r, rep) in enumerate(zip(ranks, reports)):
         info = rep["info"]
@@ -1601,8 +1639,7 @@ def mesh_world(files: list[str], reference: bytes, shape: tuple[int, int] = (2, 
                 or mesh["shard_carrier"] != want_carrier or info[ran] < 1
                 or info[other] or line not in r["err"]
                 or any(comm[f"measured_{key}"] != comm[f"predicted_{key}"]
-                       for key in ("gather_recv_bytes", "psum_bytes",
-                                   "result_gather_recv_bytes"))):
+                       for key in _COMM_KEYS)):
             raise AssertionError(f"rank {k}: {info}")
         launches += info[ran]
         mapped = r["err"][r["err"].index(line):].splitlines()[0]
@@ -1621,6 +1658,121 @@ def mesh_world(files: list[str], reference: bytes, shape: tuple[int, int] = (2, 
           "(rank start-up included)", flush=True)
     return {"launches": launches, "wall": wall,
             "ranks": [rep["info"]["timings"] for rep in reports]}
+
+
+# what the runs of the pod streamed phase leave unset, unless a run sets it
+_PATH_ENV = dict.fromkeys(("PHYLONIUM_TPU_STREAM", "PHYLONIUM_TPU_STREAM_GROUP",
+                           "PHYLONIUM_TPU_DEVICE_PILEUP", "PHYLONIUM_TPU_LOWMEM"))
+
+
+def pod_run(files: list[str], reference: bytes, label: str, streamed: bool,
+            size: int = 4, device_name: str = "cuda", **env) -> dict:
+    """One run of the panel in ``files`` through the port's CLI without
+    ``--mesh`` in ``size`` gloo ranks sharing the card, with ``env`` set.
+
+    Rank 0 byte for byte against ``reference``, the others silent. A
+    ``streamed`` run must have taken the pod streamed path on every rank:
+    its ``pod stream:`` line, the (size, 1) mesh, one pileup-build launch a
+    group of its block, pair-count launches, no plain call (on the CPU:
+    the plain calls in their place), and the collective bytes as
+    predicted. Otherwise the serial pod route: the map split's line and no
+    build. Prints each rank's phases, compare steps and prewarm, and the
+    world's wall."""
+    import torch
+
+    from phylonium_tpu_torch.parallel.stream_mp import pod_geometry, stream_group_rows
+    from phylonium_tpu_torch.utils.platform import carrier
+
+    want_carrier = carrier(torch.device(device_name))
+    # the kernels' launches on a card; their plain versions' calls on the CPU
+    kinds = ("kernel_launches", "plain_calls")
+    ran, other = kinds if want_carrier == "cuda-kernel" else kinds[::-1]
+    args = ["--progress=never", "-v", "-v", "--device", device_name, *files]
+    with env_set(**{**_PATH_ENV, **env}):
+        group = stream_group_rows()
+        ranks, reports, wall = rank_world(args, size, reference, f"pod {label} run")
+    n = len(files)
+    build = count = 0
+    for k, (r, rep) in enumerate(zip(ranks, reports)):
+        info = rep["info"]
+        mesh = info["mesh"]
+        comm = mesh["comm"]
+        g = pod_geometry(n, comm["panel"][1], size, k)
+        groups = -(-g.real_rows // group)
+        line = (f"pod stream: process {k}/{size} mapped+fed rows "
+                f"[{g.row_lo}, {g.row_hi}) of {n}" if streamed
+                else f"mapping sharded: process {k}/{size} mapped")
+        ok = (info["compare_carrier"] == "mesh" and mesh["rank"] == k
+              and mesh["shard_carrier"] == want_carrier and line in r["err"]
+              and info[ran] >= 1 and not info[other] and not info[f"build_{other}"]
+              and all(comm[f"measured_{key}"] == comm[f"predicted_{key}"]
+                      for key in _COMM_KEYS))
+        if streamed:
+            ok = (ok and mesh["shape"] == [size, 1] and "mapping sharded:" not in r["err"]
+                  and info[f"build_{ran}"] == info["stream_groups"] == groups)
+        else:
+            ok = ok and "pod stream:" not in r["err"] and info[f"build_{ran}"] == 0
+        if not ok:
+            raise AssertionError(f"pod {label} run, rank {k}: {info}")
+        build += info[f"build_{ran}"]
+        count += info[ran]
+        steps = ", ".join(f"{key} {v:.4f}" for key, v in mesh["seconds"].items())
+        print(f"  {label}, rank {k} ({mesh['device']}, mesh {mesh['shape']}): rows "
+              f"[{g.row_lo}, {g.row_hi}); {info[f'build_{ran}']} build and {info[ran]} "
+              f"pair-count {ran.replace('_', ' ')}; phases {json.dumps(info['timings'])}; "
+              f"compare's steps (s): {steps}; gathered "
+              f"{comm['measured_gather_recv_bytes']} bytes; prewarm "
+              f"{json.dumps(info.get('prewarm'))}", flush=True)
+    print(f"  pod {label}, {n} genomes in {size} gloo ranks sharing the card: rank 0 "
+          f"byte-identical to the JAX package's host count, the others silent; "
+          f"{build} build and {count} pair-count {ran.replace('_', ' ')} in all; wall "
+          f"{wall:.3f} s (rank start-up included)", flush=True)
+    return {"build_launches": build, "count_launches": count, "wall": wall,
+            "ranks": [rep["info"]["timings"] for rep in reports]}
+
+
+def pod_streamed(files: list[str], reference: bytes, tmp: str) -> dict:
+    """The pod streamed path in 4 gloo ranks sharing the card: the panel by
+    the default gate, on the serial pod route (``PHYLONIUM_TPU_STREAM=0``)
+    and in groups of 4 rows, in turns; then the first 5 genomes under
+    ``force``, the last rank's block pure padding, against the reference CLI
+    on those files."""
+    runs = {
+        "streamed (gate)": pod_run(files, reference, "streamed (gate)", True),
+        "serial route": pod_run(files, reference, "serial route", False,
+                                PHYLONIUM_TPU_STREAM="0"),
+        "streamed, groups of 4": pod_run(files, reference, "streamed, groups of 4", True,
+                                         PHYLONIUM_TPU_STREAM_GROUP="4"),
+    }
+    few = files[:5]
+    few_reference = run_reference_cli(["--progress=never", *few], tmp)
+    runs["5 genomes, forced"] = pod_run(few, few_reference, "5 genomes, forced", True,
+                                        PHYLONIUM_TPU_STREAM="force")
+    gate = runs["streamed (gate)"]
+    return {"build_launches": gate["build_launches"],
+            "count_launches": gate["count_launches"],
+            "walls": {label: r["wall"] for label, r in runs.items()}}
+
+
+def fresh_prewarm(files: list[str], tmp: str) -> dict:
+    """The serial CLI on the card in a fresh child process: its prewarm's
+    seconds (context, library load, two pair-count launches) and the
+    seconds the run waited for it at its first device step."""
+    from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
+
+    r = run_child(["--progress=never", "--device", "cuda", *files], tmp,
+                  {k: "" for k in _PATH_ENV})
+    info = r["info"]
+    prewarm = info.get("prewarm")
+    if (r["jax"] or not prewarm or prewarm["launches"] != {"pair_count": LAUNCHES_PER_CALL}
+            or info["kernel_launches"] != LAUNCHES_PER_CALL):
+        raise AssertionError(f"the fresh process's prewarm: {info}")
+    print(f"  fresh process, {len(files)} genomes: prewarm {prewarm['seconds']:.3f} s "
+          f"on its thread, the run waited {prewarm['waited']:.4f} s for it; launches "
+          f"{json.dumps(prewarm['launches'])} (not in the run's "
+          f"{info['kernel_launches']}); phases {json.dumps(info['timings'])}; wall "
+          f"{r['wall']:.3f} s", flush=True)
+    return {**prewarm, "wall": r["wall"], "timings": info["timings"]}
 
 
 def main() -> int:
@@ -1737,6 +1889,15 @@ def main() -> int:
             nccl = mesh_nccl()
             mesh = mesh_world(eco_files, e2e["reference"])
 
+        with phase("pod streamed"):
+            # one rank's X1 group (8 of the 29 rows) and its K2 cell,
+            # [8, 2.5 MB] x [32, 2.5 MB], under the (4, 1) mesh
+            pod_group = check_build_production(device, 8, 5_000_000, seed=8)
+            pod_cell = check_mesh_shard(device, shape=(4, 1))
+            torch.cuda.empty_cache()
+            pod = pod_streamed(eco_files, e2e["reference"], eco_dir)
+            prewarm = fresh_prewarm(eco_files, eco_dir)
+
     print(json.dumps({"kernels": [{
         "name": "pair_count",
         "route": "cuda",
@@ -1757,6 +1918,7 @@ def main() -> int:
         "bound_ms_600x1000000": wide["bound_ms"],
         "bound_by_600x1000000": wide["bound_by"],
         "library_ms_600x1000000": wide["library_ms"],
+        "launches_pod_streamed": pod["count_launches"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq",
@@ -1799,6 +1961,11 @@ def main() -> int:
         "plain_ms_128x1000000": lowmem_group["plain_ms"],
         "bound_ms_128x1000000": lowmem_group["bound_ms"],
         "bound_by_128x1000000": lowmem_group["bound_by"],
+        "launches_pod_streamed": pod["build_launches"],
+        "ms_8x5000000": pod_group["ms"],
+        "plain_ms_8x5000000": pod_group["plain_ms"],
+        "bound_ms_8x5000000": pod_group["bound_ms"],
+        "bound_by_8x5000000": pod_group["bound_by"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq_shard",
@@ -1827,7 +1994,7 @@ def main() -> int:
         "replaces": MESH_REPLACES,
         "launches": mesh["launches"],
         "launches_nccl": nccl["launches"],
-        "max_abs_err": mesh_cell["max_abs_err"],
+        "max_abs_err": max(mesh_cell["max_abs_err"], pod_cell["max_abs_err"]),
         "ms": mesh_cell["ms"],
         "plain_ms": mesh_cell["plain_ms"],
         "bound_ms": mesh_cell["bound_ms"],
@@ -1836,6 +2003,15 @@ def main() -> int:
         "library": "torch._int_mm on onehot_operands of the shard",
         "shape": f"[{mesh_cell['cell'][0]}, {mesh_cell['cell'][1]}] x "
                  f"[30, {mesh_cell['cell'][1]}] bytes (2x2 mesh, 29 x 5000000)",
+        "launches_pod_streamed": pod["count_launches"],
+        "ms_4x1": pod_cell["ms"],
+        "plain_ms_4x1": pod_cell["plain_ms"],
+        "bound_ms_4x1": pod_cell["bound_ms"],
+        "bound_by_4x1": pod_cell["bound_by"],
+        "library_ms_4x1": pod_cell["library_ms"],
+        "max_abs_err_4x1": pod_cell["max_abs_err"],
+        "prewarm_s": prewarm["seconds"],
+        "prewarm_waited_s": prewarm["waited"],
         "build_s": _build.BUILD_INFO["seconds"],
     }]}), flush=True)
     print(info["nvidia_smi"].splitlines()[0], flush=True)

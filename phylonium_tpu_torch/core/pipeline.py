@@ -20,37 +20,46 @@ device the configuration names:
   feeder on compacted sequences, or the host's windowed count under
   ``--count-backend host``.
 
-Three paths, one result: each is byte-identical to the others.
+Every path gives one result: each is byte-identical to the others.
 
 In a torch.distributed world of several ranks (parallel/), every rank runs
-the pipeline. Each maps the queries it owns, round-robin, and the
-homology lists are exchanged (parallel/map_shard.py), as the JAX
-package's processes do. The count runs on the ``('rows', 'cols')`` mesh of
-ranks (parallel/distributed.py) under ``--mesh R,C``, which needs a world
-of ``R * C`` ranks, and under 'auto' counting in any world of more than one
-rank (the pod mesh, rows one a host). Every rank ends with the same
-matrix. The streamed and low-memory paths and X2 are single-rank paths
-and yield to the mesh; the JAX package's resident-shard streamed path for
-multi-process runs (parallel/stream_mp.py) is not ported yet, so such runs
-take the serial mesh route, with the same matrix. A single process with
-several cards counts on its one ``--device`` (the JAX package spans its
-local devices in a mesh); the matrix is the same.
+the pipeline and ends with the same matrix. By default ('auto' counting,
+no ``--mesh``, native mapping, none of complete deletion, ``-p`` or
+checkpoints; ``should_stream_mp``) a run on CUDA devices takes the pod
+streamed path (parallel/stream_mp.py): each rank maps its contiguous
+genome block, builds its cell of the packed panel on its device while it
+maps, and the ranks count the resident cells on the ``(R, 1)`` mesh.
+``PHYLONIUM_TPU_STREAM=force`` takes it on CPU ranks too, ``=0`` never.
+Otherwise each rank maps the queries it owns, round-robin, the homology
+lists are exchanged (parallel/map_shard.py), as the JAX package's serial
+processes do, and the count runs on the ``('rows', 'cols')`` mesh of ranks
+(parallel/distributed.py): under ``--mesh R,C``, which needs a world of
+``R * C`` ranks, or under 'auto' counting on the pod mesh (rows one a
+host). The single-rank streamed and low-memory paths and X2 yield to the
+mesh. A single process with several cards counts on its one ``--device``
+(the JAX package spans its local devices in a mesh); the matrix is the
+same.
+
+Before the index, ``prewarm_device`` starts a thread that pays the
+card's one-time costs (context, kernel library, each kernel's first
+launch) while the host indexes; the run's first device step joins it.
 
 Each phase is timed into ``LAST_RUN_INFO["timings"]`` inside a profiler
 range of its name (utils/profile.py), which ``--profile`` traces.
 
-Not carried here: kernel prewarm, link calibration, the host race and
-the retry-then-host wrapper, the early query shipper and the device
-server.
+Not carried here: link calibration, the host race and the
+retry-then-host wrapper, the early query shipper and the device server.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
 
 import numpy as np
+import torch
 
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
 from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
@@ -63,16 +72,24 @@ from phylonium_tpu_torch.core.lowmem import map_count_lowmem, should_lowmem
 from phylonium_tpu_torch.core.map_native import map_batch_native
 from phylonium_tpu_torch.core.pileup import build_pileup
 from phylonium_tpu_torch.core.segsites import write_refpos
-from phylonium_tpu_torch.core.stream import DeviceRowFeeder, map_pileup_streamed
+from phylonium_tpu_torch.core.stream import (
+    DeviceRowFeeder,
+    effective_group_rows,
+    map_pileup_streamed,
+)
 from phylonium_tpu_torch.data.sequence import Sequence, gc_content
 from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.model.evo import EvoCounts
 from phylonium_tpu_torch.ops import (
+    _build,
     anchor_extend,
     anchor_extend_sharded,
     pair_count,
     pileup_device,
 )
+from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
+from phylonium_tpu_torch.ops.shapes import _PACKED_PAD
+from phylonium_tpu_torch.ops.states import ROW_ALIGN
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.utils.platform import carrier, resolve_device
 from phylonium_tpu_torch.utils.profile import phase
@@ -84,8 +101,10 @@ from phylonium_tpu_torch.utils.progress import ProgressBar
 # "numpy"), the phase timings in seconds, the kernel launches and
 # plain-version calls of the count, of hybrid mapping's extension and of
 # the pileup build, the hybrid mapper's device rounds, the groups the
-# streamed feeder built, and, on the low-memory path, its group size and
-# number of homologies ("lowmem").
+# streamed feeder built, on the low-memory path its group size and number
+# of homologies ("lowmem"), on the mesh its shape and collective bytes
+# ("mesh"), and the device prewarm's seconds, wait and launches
+# ("prewarm", not in the run's launch counts).
 LAST_RUN_INFO: dict = {}
 
 # the wrappers whose launches and plain calls a run reports, by the key
@@ -288,11 +307,7 @@ def _pair_counts_mesh(
     Every rank takes part; none retries or counts on the host alone, since
     a rank that left the collective would stall its peers (JAX :746-749).
     """
-    from phylonium_tpu_torch.parallel.distributed import (
-        LAST_COMM,
-        comm_account,
-        pair_counts_sharded,
-    )
+    from phylonium_tpu_torch.parallel.distributed import pair_counts_sharded
     from phylonium_tpu_torch.parallel.mesh import make_mesh
     from phylonium_tpu_torch.parallel.multihost import make_pod_mesh
 
@@ -305,19 +320,26 @@ def _pair_counts_mesh(
         mesh = make_pod_mesh(device=device)
     setup_s = time.perf_counter() - t0
     counts = pair_counts_sharded(states, mesh)
+    _report_mesh(mesh, *states.shape, setup_s)
+    return counts
+
+
+def _report_mesh(mesh, n: int, length: int, setup_s: float) -> None:
+    """LAST_RUN_INFO's account of a count on the mesh of ranks."""
+    from phylonium_tpu_torch.parallel.distributed import LAST_COMM, comm_account
+
     LAST_RUN_INFO["compare_carrier"] = "mesh"
     LAST_RUN_INFO["mesh"] = {
         "shape": list(mesh.shape), "rank": mesh.rank, "backend": mesh.backend,
         "device": str(mesh.device), "shard_carrier": carrier(mesh.device),
-        "comm": comm_account(*states.shape, mesh),
+        "comm": comm_account(n, length, mesh),
         # host seconds: the mesh's groups (made once a process), then the
         # steps of the sharded count
         "seconds": {"setup": setup_s, **LAST_COMM["seconds"]},
     }
-    return counts
 
 
-def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
+def should_stream(cfg: TorchRunConfig, ref: ESAIndex | None = None) -> bool:
     """Take the streamed path (core/stream.py)?
 
     Streaming is opt-in: ``PHYLONIUM_TPU_STREAM=force`` engages it, on
@@ -327,7 +349,8 @@ def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
     the structural conditions of the JAX package's ``_should_stream``
     hold: 'auto' counting, no mesh and a world of one rank, none of
     complete deletion, ``-p`` or checkpoints (each needs the whole homology
-    set first), and native mapping on a native index.
+    set first), and native mapping on a native index (``ref=None``:
+    before the index is built, taken as native).
     """
     if os.environ.get("PHYLONIUM_TPU_STREAM", "") != "force":
         return False
@@ -337,7 +360,53 @@ def should_stream(cfg: TorchRunConfig, ref: ESAIndex) -> bool:
         return False
     if cfg.map_backend not in ("auto", "native"):
         return False
-    return ref.backend_name == "native"
+    return ref is None or ref.backend_name == "native"
+
+
+def should_stream_mp(cfg: TorchRunConfig, ref: ESAIndex | None, n: int) -> bool:
+    """Take the pod streamed path (parallel/stream_mp.py)?
+
+    ``_should_stream_mp`` of the JAX package
+    (phylonium_tpu/core/pipeline.py:979-1012), condition for condition: a
+    world of more than one rank; not ``PHYLONIUM_TPU_STREAM=0``; 'auto'
+    counting and no ``--mesh``; none of complete deletion, ``-p`` or
+    checkpoints; 'auto' or 'native' mapping on the native index
+    (``ref=None``: before the index is built, taken as native). Then
+    ``PHYLONIUM_TPU_STREAM=force`` engages it, and otherwise a panel of
+    more than one feeding group (``n > effective_group_rows(n)``) on a
+    CUDA ``--device`` (the JAX package's ``not cpu_pinned()``).
+
+    Every input is the same on every rank, so every rank decides alike.
+    A torch rank has one device by construction (parallel/mesh.py), so the
+    JAX test ``jax.local_device_count() != 1`` has no counterpart.
+    """
+    if world()[0] <= 1:
+        return False
+    env = os.environ.get("PHYLONIUM_TPU_STREAM", "")
+    if env == "0":
+        return False
+    if cfg.count_backend != "auto" or cfg.mesh:
+        return False
+    if cfg.complete_deletion or cfg.print_positions or cfg.checkpoint_dir:
+        return False
+    if cfg.map_backend not in ("auto", "native"):
+        return False
+    if ref is not None and ref.backend_name != "native":
+        return False
+    if env == "force":
+        return True
+    if n <= effective_group_rows(n):
+        return False
+    return _device_type(cfg) == "cuda"
+
+
+def _device_type(cfg: TorchRunConfig) -> str | None:
+    """The type of ``cfg.device`` ('cuda', 'cpu', ...), None when it does
+    not parse (``resolve_device`` names that fault where a run needs it)."""
+    try:
+        return torch.device(cfg.device).type
+    except (RuntimeError, ValueError):
+        return None
 
 
 def device_pileup(cfg: TorchRunConfig) -> bool:
@@ -359,14 +428,136 @@ def device_pileup(cfg: TorchRunConfig) -> bool:
     )
 
 
-def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
+def _prewarm_plan(n: int, total_bp: int, cfg: TorchRunConfig) -> tuple[bool, bool] | None:
+    """What a prewarm runs: (the pair count, the pileup build), or None.
+
+    None unless the run puts work on a CUDA device: 'auto', 'device' or
+    'pallas' counting, or ``--map-backend hybrid``. The build kernel is
+    warmed when the run may build rows on the device: X2, the streamed,
+    pod streamed or low-memory feeder (their gates before the index,
+    which they take as native).
+    """
+    count = cfg.count_backend in ("auto", "device", "pallas")
+    if not (count or cfg.map_backend == "hybrid") or _device_type(cfg) != "cuda":
+        return None
+    build = count and (
+        device_pileup(cfg) or should_stream(cfg) or should_stream_mp(cfg, None, n)
+        or should_lowmem(n, total_bp, cfg)
+    )
+    return count, build
+
+
+def _warm(device: torch.device, count: bool, build: bool) -> dict[str, int]:
+    """Pay the device's one-time costs: the CUDA context, the kernel
+    library's load (a build where none is cached) and each kernel's lazy
+    module load at its first launch, by one launch of the pair count and,
+    with ``build``, of the pileup build on a one-row all-INVALID panel.
+
+    The launches go through the kernels' own launch functions, not their
+    wrappers, so that they stay out of the run's ``KERNEL_LAUNCHES``; on a
+    CPU device the plain versions run instead. Returns the launches by
+    kernel.
+    """
+    cuda = device.type == "cuda"
+    panel = torch.full((1, ROW_ALIGN), _PACKED_PAD, dtype=torch.uint8, device=device)
+    if cuda:
+        _build.load()
+    launches = {}
+    if count:
+        if cuda:
+            pair_count._launch(panel, panel, True)
+        else:
+            cross_counts_reference(panel, panel)
+        launches["pair_count"] = pair_count.LAUNCHES_PER_CALL if cuda else 0
+    if build:
+        words, intervals, *overlay = (
+            torch.from_numpy(a).to(device)
+            for a in pileup_device.prepare_group([np.frombuffer(b"A", np.uint8)], [[]], 1)
+        )
+        launch = pileup_device._launch if cuda else pileup_device._plain
+        launch(words, intervals, tuple(overlay), 1, panel)
+        launches["pileup_build"] = int(cuda)
+    if cuda:
+        torch.cuda.synchronize(device)
+    return launches
+
+
+class DevicePrewarm:
+    """``_warm`` on a daemon thread, started before the index.
+
+    The port of the JAX package's ``prewarm_counts``
+    (phylonium_tpu/core/pipeline.py:812-895) and of the part of its
+    ``prewarm_stream`` that has a CUDA meaning. The thread touches no
+    ``torch.distributed`` state. The run's first device step calls
+    :meth:`join`, which records ``LAST_RUN_INFO["prewarm"]`` (the thread's
+    seconds, the seconds the run waited for it, its launches) and raises
+    whatever the thread hit: where the JAX package swallowed a prewarm
+    error, the run would only meet it again, so it is raised at once.
+    """
+
+    def __init__(self, device: torch.device, count: bool, build: bool):
+        self.seconds = 0.0
+        self.launches: dict[str, int] = {}
+        self._error: Exception | None = None
+        self._joined = False
+        self._thread = threading.Thread(
+            target=self._run, args=(device, count, build), daemon=True,
+            name="device-prewarm",
+        )
+        self._thread.start()
+
+    def _run(self, device: torch.device, count: bool, build: bool) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.launches = _warm(device, count, build)
+        except Exception as e:  # noqa: BLE001 — raised by join()
+            self._error = e
+        finally:
+            self.seconds = time.perf_counter() - t0
+
+    def join(self) -> None:
+        """Wait for the thread (once); raise what it hit."""
+        if self._joined:
+            return
+        self._joined = True
+        t0 = time.perf_counter()
+        self._thread.join()
+        LAST_RUN_INFO["prewarm"] = {
+            "seconds": self.seconds, "waited": time.perf_counter() - t0,
+            "launches": self.launches,
+        }
+        if self._error is not None:
+            raise self._error
+
+
+def prewarm_device(n: int, total_bp: int, cfg: TorchRunConfig) -> DevicePrewarm | None:
+    """Start the prewarm of an ``n``-genome run of ``total_bp`` bases, or
+    return None (``_prewarm_plan``: no CUDA work; nothing for the CPU or
+    for host counting). The device is resolved here, on the caller's
+    thread, whose current device a rank of a world has set (CUDA's current
+    device is a thread's own); a card that is missing raises ConfigError
+    before any work. The CUDA kernels are not specialized to shapes, so
+    the JAX prewarm's shape arguments have no counterpart."""
+    plan = _prewarm_plan(n, total_bp, cfg)
+    return None if plan is None else DevicePrewarm(resolve_device(cfg.device), *plan)
+
+
+def _join(warm: DevicePrewarm | None) -> None:
+    if warm is not None:
+        warm.join()
+
+
+def _serial(ref, threshold, subject, queries, cfg, timings, warm) -> tuple:
     """Map every query, build the pileup, count.
 
     The pileup is the host's [N, L] matrix, packed and copied for the
     count, or under ``device_pileup`` the packed panel built on the
-    device, which the count reads where it lies.
+    device, which the count reads where it lies. The prewarm ``warm`` is
+    joined before the first device step: hybrid mapping, X2 or the count.
     """
     with phase(timings, "map"):
+        if cfg.map_backend == "hybrid":
+            _join(warm)
         homologies = map_queries(ref, threshold, queries, cfg)
     timings.update(LAST_RUN_INFO.pop("map_split", {}))
 
@@ -379,6 +570,7 @@ def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
         if device is None:
             states = build_pileup(query_arrays, homologies, len(subject))
         else:
+            _join(warm)
             panel = pileup_device.build_pileup_device(
                 query_arrays, homologies, len(subject), device
             )
@@ -392,6 +584,7 @@ def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
         enabled=cfg.progress_enabled,
     )
     with phase(timings, "compare"):
+        _join(warm)
         if device is None:
             counts = pair_counts(states, cfg)
         else:
@@ -401,9 +594,10 @@ def _serial(ref, threshold, subject, queries, cfg, timings) -> tuple:
     return counts
 
 
-def _streamed(ref, threshold, subject, queries, cfg, timings) -> tuple:
+def _streamed(ref, threshold, subject, queries, cfg, timings, warm) -> tuple:
     """Map in groups while the feeder builds each group's rows on the
     device, then count the resident panel."""
+    _join(warm)
     device = resolve_device(cfg.device)
     feeder = DeviceRowFeeder(len(queries), len(subject), device)
     LAST_RUN_INFO["map_carrier"] = "native"
@@ -424,7 +618,8 @@ def _streamed(ref, threshold, subject, queries, cfg, timings) -> tuple:
     return counts
 
 
-def _lowmem(ref, threshold, queries, cfg, timings) -> tuple:
+def _lowmem(ref, threshold, queries, cfg, timings, warm) -> tuple:
+    _join(warm)
     subs, homs, lm_timings, info = map_count_lowmem(ref, threshold, queries, cfg)
     timings.update(lm_timings)
     LAST_RUN_INFO["map_carrier"] = "native"
@@ -433,6 +628,31 @@ def _lowmem(ref, threshold, queries, cfg, timings) -> tuple:
     LAST_RUN_INFO["stream_groups"] = info.pop("groups", 0)
     LAST_RUN_INFO["lowmem"] = info
     return subs, homs
+
+
+def _pod_streamed(ref, threshold, queries, cfg, timings, warm) -> tuple:
+    """Each rank maps its genome block and builds its cell on its device
+    while it maps, then the ranks count the resident cells
+    (parallel/stream_mp.py). The JAX package times one phase,
+    ``map+feed+compare``; here ``map+feed`` and ``compare`` are apart."""
+    from phylonium_tpu_torch.parallel.stream_mp import (
+        map_pileup_count_streamed_mp,
+        pod_mesh,
+    )
+
+    _join(warm)
+    device = resolve_device(cfg.device)
+    t0 = time.perf_counter()
+    mesh = pod_mesh(device)
+    setup_s = time.perf_counter() - t0
+    counts, feeder = map_pileup_count_streamed_mp(
+        ref, threshold, queries, cfg, mesh, timings
+    )
+    _report_mesh(mesh, len(queries), len(ref.subject), setup_s)
+    LAST_RUN_INFO["map_carrier"] = "native"
+    LAST_RUN_INFO["map_rounds"] = 0
+    LAST_RUN_INFO["stream_groups"] = feeder.groups
+    return counts
 
 
 def process(
@@ -445,6 +665,9 @@ def process(
         for prefix, module in _COUNTED.items()
     }
     timings: dict[str, float] = {}
+    n, total_bp = len(queries), sum(len(q) for q in queries)
+    # the device's one-time costs, on a thread while the host indexes
+    warm = prewarm_device(n, total_bp, cfg)
 
     with phase(timings, "index"):
         ref = ESAIndex(subject, backend=cfg.esa_backend)
@@ -454,12 +677,14 @@ def process(
     if cfg.verbose:
         print(f"ref: {subject.name}", file=sys.stderr)
 
-    if should_lowmem(len(queries), sum(len(q) for q in queries), cfg, ref):
-        subs, homs = _lowmem(ref, threshold, queries, cfg, timings)
+    if should_stream_mp(cfg, ref, n):
+        subs, homs = _pod_streamed(ref, threshold, queries, cfg, timings, warm)
+    elif should_lowmem(n, total_bp, cfg, ref):
+        subs, homs = _lowmem(ref, threshold, queries, cfg, timings, warm)
     elif should_stream(cfg, ref):
-        subs, homs = _streamed(ref, threshold, subject, queries, cfg, timings)
+        subs, homs = _streamed(ref, threshold, subject, queries, cfg, timings, warm)
     else:
-        subs, homs = _serial(ref, threshold, subject, queries, cfg, timings)
+        subs, homs = _serial(ref, threshold, subject, queries, cfg, timings, warm)
         LAST_RUN_INFO["stream_groups"] = 0
 
     LAST_RUN_INFO["timings"] = timings

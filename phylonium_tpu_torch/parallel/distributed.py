@@ -6,7 +6,9 @@ The port of the JAX package's phylonium_tpu/parallel/distributed.py
 genome block ``i`` of column shard ``c``. Each rank
 
 - packs its genome block on the host and copies only its own cell to its
-  device;
+  device (``pair_counts_sharded``), or finds the cell already built there
+  by the pod feeder (parallel/stream_mp.py); ``counts_from_cell`` runs the
+  rest on the resident cell:
 - all_gathers the other blocks of its column shard over its column's
   ranks (``rows_group``), the path's only bulk movement;
 - counts its block against all of them with the pair-count kernel
@@ -44,10 +46,11 @@ from phylonium_tpu_torch.ops.states import ROW_ALIGN, to_device
 from phylonium_tpu_torch.parallel.mesh import Mesh
 from phylonium_tpu_torch.parallel.multihost import native_stdout_to_stderr
 
-# the bytes this rank's collectives passed in the last pair_counts_sharded
-# call, with its panel and mesh (comm_account reads them), and the host
-# seconds of its steps ("seconds": cell pack and copy, row gather, count
-# until the card is done, reduction, result gather)
+# the bytes this rank's collectives passed in the last sharded count
+# (counts_from_cell, which pair_counts_sharded calls), with its panel and
+# mesh (comm_account reads them), and the host seconds of its steps
+# ("seconds": the cell's pack and copy under pair_counts_sharded, row
+# gather, count until the card is done, reduction, result gather)
 LAST_COMM: dict = {}
 
 _COMM_KEYS = ("gather_recv_bytes", "psum_bytes", "result_gather_recv_bytes")
@@ -120,12 +123,43 @@ def gathered_counts(m: torch.Tensor, h: torch.Tensor, n: int) -> tuple[np.ndarra
 def pair_counts_sharded(states: np.ndarray, mesh: Mesh) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (substitutions, homologs) over ``mesh`` (collective).
 
-    ``states``: the [N, L] uint8 pileup, the same on every rank. Returns
-    int64 [N, N] host matrices, the same on every rank.
+    ``states``: the [N, L] uint8 pileup, the same on every rank. Packs this
+    rank's cell on the host, copies it to the rank's device and counts it
+    with :func:`counts_from_cell`. Returns int64 [N, N] host matrices, the
+    same on every rank.
     """
     n, length = states.shape
+    n_pad, lc, l_pad = sharded_shape(n, length, *mesh.shape)
+    t0 = time.perf_counter()
+    mine = to_device(_my_cell(states, mesh, n_pad, lc, l_pad), mesh.device)
+    cell_s = time.perf_counter() - t0
+    result = counts_from_cell(mine, n, length, mesh)
+    LAST_COMM["seconds"] = {"cell": cell_s, **LAST_COMM["seconds"]}
+    return result
+
+
+def counts_from_cell(
+    mine: torch.Tensor, n: int, length: int, mesh: Mesh
+) -> tuple[np.ndarray, np.ndarray]:
+    """All-pairs (substitutions, homologs) of the ``n`` x ``length`` panel
+    whose cell ``mine`` this rank holds on ``mesh.device`` (collective).
+
+    ``mine``: this rank's [n_pad / R, lc] packed cell of the
+    ``sharded_shape`` geometry, wherever it was built (the host pack of
+    ``pair_counts_sharded``, or the pod feeder's panel,
+    parallel/stream_mp.py). The port of the JAX package's
+    ``_sharded_counts`` (phylonium_tpu/parallel/stream_mp.py:188): the row
+    gather, the count, the reduction and the result gather. Returns int64
+    [N, N] host matrices, the same on every rank.
+    """
     rows, cols = mesh.shape
-    n_pad, lc, l_pad = sharded_shape(n, length, rows, cols)
+    n_pad, lc, _ = sharded_shape(n, length, rows, cols)
+    if tuple(mine.shape) != (n_pad // rows, lc) or mine.device != mesh.device:
+        raise ValueError(
+            f"the cell is {tuple(mine.shape)} on {mine.device}; the {rows} x "
+            f"{cols} mesh of a {n} x {length} panel holds [{n_pad // rows}, "
+            f"{lc}] on {mesh.device}"
+        )
     seconds: dict[str, float] = {}
     LAST_COMM.clear()
     LAST_COMM.update({"panel": (n, length), "mesh": (rows, cols), "seconds": seconds},
@@ -138,8 +172,6 @@ def pair_counts_sharded(states: np.ndarray, mesh: Mesh) -> tuple[np.ndarray, np.
         seconds[name] = t1 - t0
         t0 = t1
 
-    mine = to_device(_my_cell(states, mesh, n_pad, lc, l_pad), mesh.device)
-    lap("cell")
     everyone = torch.cat(_all_gather(mine, mesh.rows_group, mesh, "gather_recv_bytes"))
     lap("gather")
     counts = torch.zeros((2, mine.shape[0], n_pad), dtype=torch.int64, device=mesh.device)
@@ -173,8 +205,10 @@ def comm_account(n: int, length: int, mesh: Mesh) -> dict:
     int32). The port adds the final gather of the reduced row blocks, which
     the JAX package makes with ``process_allgather`` outside its program.
     The measured side is what this rank's collective wrappers passed in the
-    last ``pair_counts_sharded`` call of the same panel and mesh (None
-    when there was none); the JAX package parsed its compiled HLO instead.
+    last sharded count (``counts_from_cell``, under ``pair_counts_sharded``
+    or the pod feeder) of the same panel and mesh (None when there was
+    none); the JAX package parsed its compiled HLO instead. It needs no
+    host states: the geometry is ``sharded_shape``'s.
     """
     rows, cols = mesh.shape
     n_pad, lc, l_pad = sharded_shape(n, length, rows, cols)
