@@ -108,7 +108,29 @@ non-zero exit and no result line:
     under ``PHYLONIUM_TPU_STREAM=force`` (the last rank's block pure
     padding) against the reference CLI on those files; and a fresh
     single-process CLI child's device prewarm, its seconds and the run's
-    wait for it.
+    wait for it;
+19. the 'auto' dispatch: the dispatch model's constants on the card's
+    machine, in turns on the host pileup of phase 11's panel (the host
+    count against the card's serial count from 8 to 464 rows, equal bit
+    for bit; the work above which the card wins; the host count's Gbp/s
+    at 29 and 116 rows; the native mapper's rate; at 29 rows the serial
+    route's pack, copy and resident count); one 29 x 5 Mbp group shipped
+    by the early query shipper, its words on the card equal to the host
+    pack and its pileup-build kernel's panel equal, byte for byte, to the
+    unshipped one, with the kernel's time and the feeder's host prep with
+    and without the resident codes; then the port's CLI with no routing
+    variable on one calibration store that starts empty: 3 x 100 kbp,
+    29 x 5 Mbp, 116 x 5 Mbp and 600 x 1 Mbp by the static rule, then
+    29 x 5 Mbp, 116 x 5 Mbp and 3 x 100 kbp by the measured models, each
+    byte for byte against the JAX package's CLI with host counting, with
+    the store it read, the models' decisions and the route: no launch on
+    the host route, every fed group taken from the shipper (none
+    repacked), one build launch a group and one count call when streamed.
+
+Each phase runs with a calibration store of its own in a temporary
+directory (``PHYLONIUM_TPU_CALIBRATION_FILE``); the phases that drive one
+route pin it (``--count-backend device``, ``PHYLONIUM_TPU_STREAM``), since
+'auto' routes by the dispatch model.
 
 The last lines are the kernel table as JSON (per kernel: launches on its
 main path, the largest error, the kernel's, the plain version's and the
@@ -166,8 +188,13 @@ _COMM_KEYS = ("gather_recv_bytes", "psum_bytes", "result_gather_recv_bytes")
 
 @contextlib.contextmanager
 def phase(name: str):
+    """Time a phase; its runs read and write a calibration store of their
+    own, in a temporary directory, so no phase's routes depend on another's
+    or on the machine's history."""
     t0 = time.perf_counter()
-    yield
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_calibration_") as tmp, \
+            env_set(PHYLONIUM_TPU_CALIBRATION_FILE=os.path.join(tmp, "calibration.json")):
+        yield
     print(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s", flush=True)
 
 
@@ -190,6 +217,11 @@ def reference_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["CXX"] = native_build.BUILD_INFO["compiler"]
+    # the JAX package's store holds its own keys' meaning: keep it beside
+    # the phase's, never in it
+    store = env.get("PHYLONIUM_TPU_CALIBRATION_FILE")
+    if store:
+        env["PHYLONIUM_TPU_CALIBRATION_FILE"] = store + ".reference"
     return env
 
 
@@ -697,7 +729,9 @@ def end_to_end(device_name: str, files: list[str], tmp: str) -> dict:
     from phylonium_tpu_torch.ops import pair_count
 
     n = len(files)
-    args = ["--progress=never", "--device", device_name, *files]
+    # the serial device route, pinned: 'auto' routes by the dispatch model
+    # (phase 19)
+    args = ["--progress=never", "--count-backend", "device", "--device", device_name, *files]
     pair_count.KERNEL_LAUNCHES = 0
     pair_count.PLAIN_CALLS = 0
     t0 = time.perf_counter()
@@ -735,8 +769,8 @@ def end_to_end_hybrid(device_name: str, n: int = 8, length: int = 5_000_000) -> 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmp:
         panel = eco29_panel(n, length, seed=8, low=0.002, span=0.018)
         files = write_fasta(panel, tmp)
-        args = ["--progress=never", "--map-backend", "hybrid",
-                "--device", device_name, *files]
+        args = ["--progress=never", "--map-backend", "hybrid", "--count-backend",
+                "device", "--device", device_name, *files]
         anchor_extend.KERNEL_LAUNCHES = 0
         anchor_extend.PLAIN_CALLS = 0
         pair_count.KERNEL_LAUNCHES = 0
@@ -986,8 +1020,11 @@ def end_to_end_streamed(device_name: str, files: list[str]) -> dict:
     n = len(files)
     groups = -(-n // effective_group_rows(n))
     runs = []
-    args = ["--progress=never", "--device", device_name, *files]
+    # streamed: forced (with the early shipper it engages); serial: the
+    # device count pinned
+    pins = {"serial": ["--count-backend", "device"], "streamed": []}
     for mode in ("serial", "streamed", "streamed", "serial"):
+        args = ["--progress=never", *pins[mode], "--device", device_name, *files]
         r = port_run(args, PHYLONIUM_TPU_STREAM="force" if mode == "streamed" else "0",
                      PHYLONIUM_TPU_STREAM_GROUP=None, PHYLONIUM_TPU_DEVICE_PILEUP=None)
         check_phylip(r["out"], n)
@@ -999,6 +1036,10 @@ def end_to_end_streamed(device_name: str, files: list[str]) -> dict:
     for r in runs:
         c = r["counts"]
         want_build = groups if r["mode"] == "streamed" else 0
+        ship = r["info"].get("early_ship")
+        if r["mode"] == "streamed" and (not ship or ship["taken"] != groups
+                                        or ship["repacked"]):
+            raise AssertionError(f"streamed run's early ship: {ship}")
         if (c["build_launches"] != want_build or c["build_plain"]
                 or c["count_launches"] != pair_count.LAUNCHES_PER_CALL or c["count_plain"]
                 or r["groups"] != want_build):
@@ -1012,7 +1053,8 @@ def end_to_end_streamed(device_name: str, files: list[str]) -> dict:
           "pair-count launches (one call) each", flush=True)
     for r in runs:
         print(f"  {r['mode']:8s} wall {r['wall']:.3f} s, phases "
-              f"{json.dumps(r['timings'])}", flush=True)
+              f"{json.dumps(r['timings'])}, early ship "
+              f"{json.dumps(r['info'].get('early_ship'))}", flush=True)
     streamed = [r for r in runs if r["mode"] == "streamed"]
     return {"launches": streamed[0]["counts"]["build_launches"],
             "runs": [{k: r[k] for k in ("mode", "wall", "timings")} for r in runs]}
@@ -1035,7 +1077,8 @@ def end_to_end_device_pileup(device_name: str, files: list[str], tmp: str,
     groups = -(-n // effective_group_rows(n))
     checked = {}
     for flags in ([], ["--complete-deletion"]):
-        args = ["--progress=never", *flags, "--device", device_name, *files]
+        args = ["--progress=never", *flags, "--count-backend", "device", "--device",
+                device_name, *files]
         r = port_run(args, PHYLONIUM_TPU_DEVICE_PILEUP="1", PHYLONIUM_TPU_STREAM=None,
                      PHYLONIUM_TPU_STREAM_GROUP=None)
         check_phylip(r["out"], n)
@@ -1060,7 +1103,8 @@ def end_to_end_device_pileup(device_name: str, files: list[str], tmp: str,
     turns = {}
     for flags, panel in timed:
         label = " ".join([f"{len(panel)} genomes", *flags])
-        args = ["--progress=never", *flags, "--device", device_name, *panel]
+        args = ["--progress=never", *flags, "--count-backend", "device", "--device",
+                device_name, *panel]
         runs = []
         for mode in ("host", "X2", "X2", "host"):
             r = port_run(args, PHYLONIUM_TPU_DEVICE_PILEUP="1" if mode == "X2" else None,
@@ -1100,7 +1144,8 @@ def profile_run(device_name: str, files: list[str], tmp: str, expect_out: str) -
     from phylonium_tpu_torch.utils.profile import GROUP_RANGE
 
     trace_dir = os.path.join(tmp, "profile")
-    args = ["--progress=never", f"--profile={trace_dir}", "--device", device_name, *files]
+    args = ["--progress=never", f"--profile={trace_dir}", "--count-backend", "device",
+            "--device", device_name, *files]
     r = port_run(args, PHYLONIUM_TPU_DEVICE_PILEUP="1", PHYLONIUM_TPU_STREAM=None,
                  PHYLONIUM_TPU_STREAM_GROUP=None)
     if r["out"] != expect_out:
@@ -1240,7 +1285,8 @@ def end_to_end_lowmem(device_name: str, n: int = 1000, length: int = 1_000_000) 
         files = write_fasta(eco29_panel(n, length, seed=1000), tmp)
         args = ["--progress=never", "--device", device_name, *files]
         low = run_child(args, tmp, {"PHYLONIUM_TPU_LOWMEM": "force"})
-        serial = run_child(args, tmp, {"PHYLONIUM_TPU_LOWMEM": "0"})
+        serial = run_child(["--count-backend", "device", *args], tmp,
+                           {"PHYLONIUM_TPU_LOWMEM": "0"})
     if low["out"] != serial["out"]:
         raise AssertionError("low-memory output differs from the serial run's")
     check_phylip(low["out"].decode(), n)
@@ -1258,7 +1304,8 @@ def end_to_end_lowmem(device_name: str, n: int = 1000, length: int = 1_000_000) 
         raise AssertionError(f"the serial run took another path: {serial['info']}")
     print(f"  low-memory e2e {n} x {length}: byte-identical to the serial run; "
           f"{groups} groups of {group}, {groups} build launches, 0 plain calls, "
-          f"carrier {info['compare_carrier']}", flush=True)
+          f"carrier {info['compare_carrier']}; early ship "
+          f"{json.dumps(info.get('early_ship'))}", flush=True)
     for name, r in (("low-mem", low), ("serial", serial)):
         print(f"  {name:8s} peak RSS {r['rss_mb']:.1f} MB, wall {r['wall']:.3f} s, "
               f"phases {json.dumps(r['info']['timings'])}", flush=True)
@@ -1361,8 +1408,8 @@ def end_to_end_hybrid_sharded(device_name: str, reference: bytes, n: int = 8,
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_x5_") as tmp:
         files = write_fasta(eco29_panel(n, length, seed=8, low=0.002, span=0.018), tmp)
-        args = ["--progress=never", "--map-backend", "hybrid", "--device", device_name,
-                *files]
+        args = ["--progress=never", "--map-backend", "hybrid", "--count-backend", "device",
+                "--device", device_name, *files]
         saved = aes.shard_devices
         aes.shard_devices = lambda device: [device] * SHARDS
         try:
@@ -1760,8 +1807,8 @@ def fresh_prewarm(files: list[str], tmp: str) -> dict:
     seconds the run waited for it at its first device step."""
     from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
 
-    r = run_child(["--progress=never", "--device", "cuda", *files], tmp,
-                  {k: "" for k in _PATH_ENV})
+    r = run_child(["--progress=never", "--count-backend", "device", "--device", "cuda",
+                   *files], tmp, {k: "" for k in _PATH_ENV})
     info = r["info"]
     prewarm = info.get("prewarm")
     if (r["jax"] or not prewarm or prewarm["launches"] != {"pair_count": LAUNCHES_PER_CALL}
@@ -1773,6 +1820,279 @@ def fresh_prewarm(files: list[str], tmp: str) -> dict:
           f"{info['kernel_launches']}); phases {json.dumps(info['timings'])}; wall "
           f"{r['wall']:.3f} s", flush=True)
     return {**prewarm, "wall": r["wall"], "timings": info["timings"]}
+
+
+# what an 'auto' run leaves unset: its routes are the dispatch model's
+_AUTO_ENV = dict.fromkeys(_PATH_ENV.keys() | {"PHYLONIUM_TPU_LOWMEM_BYTES",
+                                              "PHYLONIUM_TPU_AUTO_DEVICE_GBP"})
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median host-clock ms of ``runs`` calls of ``fn``, each ended by a
+    synchronize (for work whose result the host waits for)."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def panel_pileup(files: list[str]):
+    """The port's host pileup of the panel in ``files``, the first genome
+    the reference, mapped by the native mapper: (states, map seconds,
+    query bases)."""
+    from phylonium_tpu_torch.config import RunConfig
+    from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
+    from phylonium_tpu_torch.core.map_native import map_batch_native
+    from phylonium_tpu_torch.core.pileup import build_pileup
+    from phylonium_tpu_torch.data.sequence import gc_content, join
+    from phylonium_tpu_torch.index.esa import ESAIndex
+    from phylonium_tpu_torch.io.fasta import read_genome
+    from phylonium_tpu_torch.utils.progress import ProgressBar
+
+    queries = [join(read_genome(f)).as_array() for f in files]
+    subject = join(read_genome(files[0]))
+    ref = ESAIndex(subject, backend="native")
+    threshold = min_anchor_length(
+        RunConfig().anchor_p_value, gc_content(subject.nucl), ref.size
+    )
+    t0 = time.perf_counter()
+    homologies = map_batch_native(ref._native, queries, threshold,
+                                  ProgressBar("", len(queries), enabled=False), 0)
+    map_s = time.perf_counter() - t0
+    states = build_pileup(queries, homologies, len(subject))
+    return states, map_s, sum(len(q) for q in queries)
+
+
+def dispatch_constants(device, files: list[str]) -> dict:
+    """The card's numbers of the dispatch model, in turns in this process.
+
+    On the host pileup of the panel in ``files`` (116 eco29-shaped
+    genomes of 5 Mbp; its rows stacked again past 116, to 464): the host count
+    (``pair_counts_host``, whose speed depends on the data: random states
+    run it some 50x slower) and the card's serial count
+    (``pair_counts``: host pack and pinned staging, copy, kernels, result
+    fetch) at n of 8 to 464, in the order host, card, card, host, equal
+    bit for bit; the host count's Gbp/s at 29 and 116; the pair work above
+    which the card wins (interpolated in log time between the last n
+    where the host wins and the next, where the card does); the native mapper's
+    query Gbp/s on the panel; and at 29 rows the serial route's parts: the
+    pack and staging (bases a second), the copy (MB/s, CUDA events) and
+    the resident count, launch and fetch (the tail)."""
+    import numpy as np
+    import torch
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.ops.bitplane_host import pair_counts_host
+    from phylonium_tpu_torch.ops.states import pack_rows
+
+    states, map_s, total_bp = panel_pileup(files)
+    length = states.shape[1]
+    states = np.concatenate([states] * 4)
+    pair_counts_host(states[:2])  # warm: the native library, the context,
+    pair_count.pair_counts(states[:2], device)  # the kernel's first launch
+    sweep = []
+    for n in (8, 16, 29, 48, 64, 96, 116, 160, 232, 348, 464):
+        panel = states[:n]
+        times = {"host": [], "card": []}
+        results = {}
+        for turn in ("host", "card", "card", "host"):
+            t0 = time.perf_counter()
+            results[turn] = (pair_counts_host(panel) if turn == "host"
+                             else pair_count.pair_counts(panel, device))
+            times[turn].append(time.perf_counter() - t0)
+        if not all(np.array_equal(a, b) for a, b in zip(results["host"], results["card"])):
+            raise AssertionError(f"host and card counts differ at {n} x {length}")
+        work = n * (n - 1) / 2 * length / 1e9
+        row = {"n": n, "work_gbp": work, "host_s": statistics.mean(times["host"]),
+               "card_s": statistics.mean(times["card"])}
+        sweep.append(row)
+        print(f"  compare {n} x {length} ({work:.3f} Gbp of pair work): host "
+              f"{row['host_s']:.4f} s ({work / row['host_s']:.2f} Gbp/s), card serial "
+              f"{row['card_s']:.4f} s, in turns host, card, card, host; equal", flush=True)
+    # the upper crossing: the last n where the host wins before the card
+    # does (the host's rate grows with n, so the card's serial count can
+    # also win at the smallest panels, by a few ms)
+    crossing = None
+    for a, b in zip(sweep, sweep[1:]):
+        if a["host_s"] <= a["card_s"] and b["host_s"] > b["card_s"]:
+            la = np.log(a["host_s"] / a["card_s"])
+            lb = np.log(b["host_s"] / b["card_s"])
+            crossing = float(a["work_gbp"] * (b["work_gbp"] / a["work_gbp"]) ** (la / (la - lb)))
+    # the serial route's parts at 29 rows
+    panel = states[:29]
+    pack_ms = host_ms(lambda: torch.from_numpy(pack_rows(panel)).pin_memory())
+    staged = torch.from_numpy(pack_rows(panel)).pin_memory()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    copies = []
+    for _ in range(3):
+        start.record()
+        rows = staged.to(device, non_blocking=True)
+        end.record()
+        end.synchronize()
+        copies.append(start.elapsed_time(end))
+    copy_ms = statistics.median(copies)
+    tail_ms = host_ms(lambda: pair_count.pair_counts_rows(rows))
+    serial_ms = host_ms(lambda: pair_count.pair_counts(panel, device))
+    by_n = {row["n"]: row for row in sweep}
+    out = {
+        "host_compare_gbps_29": by_n[29]["work_gbp"] / by_n[29]["host_s"],
+        "host_compare_gbps_116": by_n[116]["work_gbp"] / by_n[116]["host_s"],
+        "crossing_gbp": crossing,
+        "map_gbps": total_bp / 1e9 / map_s,
+        "pack_bps": 29 * length / (pack_ms / 1e3),
+        "link_mb_s": staged.numel() / 1e6 / (copy_ms / 1e3),
+        "tail_s": tail_ms / 1e3,
+        "serial_s": serial_ms / 1e3,
+        "sweep": sweep,
+    }
+    print(f"  dispatch constants: host compare {out['host_compare_gbps_29']:.2f} Gbp/s "
+          f"at 29 x {length}, {out['host_compare_gbps_116']:.2f} at 116 x {length}; "
+          f"host and card serial compare cross at {crossing} Gbp of pair work; native "
+          f"mapping {out['map_gbps']:.4f} query Gbp/s ({len(files)} genomes in "
+          f"{map_s:.3f} s); at 29 x {length}: pack and pinned staging {pack_ms:.3f} ms "
+          f"({out['pack_bps']:.4g} bases/s), copy {copy_ms:.3f} ms "
+          f"({out['link_mb_s']:.1f} MB/s), resident count (launch and fetch, the tail) "
+          f"{tail_ms:.3f} ms; the serial count whole {serial_ms:.3f} ms", flush=True)
+    del rows, staged
+    torch.cuda.empty_cache()
+    return out
+
+
+def shipped_group(device, rows: int = 29, length: int = 5_000_000, seed: int = 116) -> dict:
+    """One mapped group shipped by the early query shipper: its words on
+    the card equal the host pack; the feeder's host prep with and without
+    them; the pileup-build kernel on the resident words, byte for byte the
+    unshipped build, with its time and bound."""
+    import torch
+
+    from phylonium_tpu_torch.core.query_ship import QueryShipper
+    from phylonium_tpu_torch.ops import pileup_device
+    from phylonium_tpu_torch.ops.pileup_prep import group_payload
+    from phylonium_tpu_torch.ops.states import packed_width
+
+    queries, homologies, ref_len = mapped_group(rows, length, seed)
+    shipper = QueryShipper(rows, device, group_rows=rows)
+    try:
+        for q in queries:
+            shipper.add(q)
+        resident = shipper.take(0, rows)
+    finally:
+        shipper.stop()
+    if resident.words.cpu().numpy().tobytes() != group_payload(queries)[0].tobytes():
+        raise AssertionError("the shipped words differ from the host pack")
+    t0 = time.perf_counter()
+    full = pileup_device.prepare_group(queries, homologies, ref_len)
+    full_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    shipped = pileup_device.prepare_group(queries, homologies, ref_len,
+                                          resident=resident[:3])
+    shipped_ms = 1e3 * (time.perf_counter() - t0)
+    width = packed_width(ref_len)
+    built = []
+    for inputs in (full, shipped):
+        t = [a if torch.is_tensor(a) else torch.from_numpy(a).to(device) for a in inputs]
+        out = torch.empty((rows, width), dtype=torch.uint8, device=device)
+        pileup_device.build_packed_rows(t[0], t[1], tuple(t[2:]), ref_len, out)
+        built.append((t, out))
+    torch.cuda.synchronize()
+    err = build_compare(built[1][1], built[0][1], f"a shipped {rows} x {length} group")
+    t, out = built[1]
+    ms = time_ms(lambda: pileup_device._launch(t[0], t[1], tuple(t[2:]), ref_len, out),
+                 reps=5)
+    read = sum(x.numel() * x.element_size() for x in t)
+    bound_ms, bound_by = bound(read + rows * width)
+    print(f"  shipped group {rows} x {length}: {resident.words.numel() * 4} bytes of codes "
+          f"on the card == the host pack; the shipped build == the unshipped one, byte "
+          f"for byte; kernel on the resident words {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); the feeder's host prep {shipped_ms:.3f} ms with the resident "
+          f"codes against {full_ms:.3f} ms packing them", flush=True)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "prep_ms": shipped_ms, "prep_full_ms": full_ms}
+
+
+def auto_run(label: str, files: list[str], reference: bytes) -> dict:
+    """One 'auto' run of the port's CLI on the card with no routing
+    variable, against ``reference`` byte for byte. The route is the
+    dispatch model's: on the host no kernel launches; streamed, every fed
+    group is taken from the early shipper (none repacked), one build
+    launch a group and one count call; serial on the card, one count call.
+    Prints the store it read, the models' decisions and the route."""
+    from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
+
+    store_path = os.environ["PHYLONIUM_TPU_CALIBRATION_FILE"]
+    store = {}
+    if os.path.exists(store_path):
+        with open(store_path) as f:
+            store = json.load(f)
+    r = port_run(["--progress=never", "--device", "cuda", *files], **_AUTO_ENV)
+    if r["out"].encode() != reference:
+        raise AssertionError(f"auto run '{label}' differs from the JAX package's host count")
+    info, c = r["info"], r["counts"]
+    ship = info.get("early_ship")
+    groups = info["stream_groups"]
+    if info["compare_carrier"] == "host":
+        route = "host"
+        ok = not any(c.values()) and not groups and not ship
+    elif groups:
+        route = "streamed"
+        ok = (ship is not None and ship["taken"] == groups == c["build_launches"]
+              and ship["repacked"] == 0 and ship["groups"] >= groups
+              and c["count_launches"] == LAUNCHES_PER_CALL
+              and not c["count_plain"] and not c["build_plain"])
+    else:
+        route = "card, serial"
+        ok = (c["count_launches"] == LAUNCHES_PER_CALL and not c["build_launches"]
+              and not c["count_plain"] and not ship)
+    if not ok or "jax" in sys.modules:
+        raise AssertionError(f"auto run '{label}' on the {route} route: {c}, {info}")
+    print(f"  auto {label}, {len(files)} genomes: byte-identical to the JAX package's host "
+          f"count; store read {json.dumps({k: v for k, v in store.items() if k != 'updated'})}"
+          f"; dispatch model {json.dumps(info.get('dispatch_model'))}, stream model "
+          f"{json.dumps(info.get('stream_model'))} -> route {route}; early ship "
+          f"{json.dumps(ship)}; launches {json.dumps(c)}; wall {r['wall']:.3f} s, phases "
+          f"{json.dumps(r['timings'])}", flush=True)
+    return {"route": route, "counts": c, "early_ship": ship, "wall": r["wall"],
+            "timings": r["timings"], "dispatch_model": info.get("dispatch_model"),
+            "stream_model": info.get("stream_model")}
+
+
+def auto_dispatch(device, eco_files: list[str], eco_reference: bytes,
+                  wide_files: list[str], tmp: str) -> dict:
+    """Phase 19: the dispatch model's constants, a shipped group, then the
+    'auto' CLI on one calibration store that starts empty. While the store
+    holds no copy rate the static rule decides: a small panel, 29 x 5 Mbp,
+    116 x 5 Mbp and 600 x 1 Mbp, whose work is far above the crossing, so
+    it streams and its shipper records the first copy rate; then the
+    measured models decide 29 x 5 Mbp, 116 x 5 Mbp and the small panel."""
+    constants = dispatch_constants(device, wide_files)
+    group = shipped_group(device)
+    panels = {}
+    for name, n, length, seed in (("small", 3, 100_000, 3), ("600 x 1 Mbp", 600, 1_000_000, 600)):
+        directory = os.path.join(tmp, name.replace(" ", "_"))
+        os.makedirs(directory, exist_ok=True)
+        files = write_fasta(eco29_panel(n, length, seed=seed), directory)
+        panels[name] = (files, run_reference_cli(["--progress=never", *files], directory))
+    panels["29 x 5 Mbp"] = (eco_files, eco_reference)
+    panels["116 x 5 Mbp"] = (wide_files, run_reference_cli(["--progress=never", *wide_files],
+                                                           tmp))
+    runs = {}
+    for name, store in (("small", "no copy rate"), ("29 x 5 Mbp", "no copy rate"),
+                        ("116 x 5 Mbp", "no copy rate"), ("600 x 1 Mbp", "no copy rate"),
+                        ("29 x 5 Mbp", "filled"), ("116 x 5 Mbp", "filled"),
+                        ("small", "filled")):
+        label = f"{name}, store {store}"
+        runs[label] = auto_run(label, *panels[name])
+    streamed = [r for r in runs.values() if r["route"] == "streamed"]
+    if not streamed:
+        raise AssertionError("no 'auto' run streamed: the shipped route was not driven")
+    return {"constants": constants, "group": group, "runs": runs,
+            "build_launches": sum(r["counts"]["build_launches"] for r in runs.values()),
+            "count_launches": sum(r["counts"]["count_launches"] for r in runs.values())}
 
 
 def main() -> int:
@@ -1898,6 +2218,10 @@ def main() -> int:
             pod = pod_streamed(eco_files, e2e["reference"], eco_dir)
             prewarm = fresh_prewarm(eco_files, eco_dir)
 
+        with phase("auto dispatch"):
+            auto = auto_dispatch(device, eco_files, e2e["reference"], wide_files, wide_dir)
+            torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": [{
         "name": "pair_count",
         "route": "cuda",
@@ -1919,6 +2243,7 @@ def main() -> int:
         "bound_by_600x1000000": wide["bound_by"],
         "library_ms_600x1000000": wide["library_ms"],
         "launches_pod_streamed": pod["count_launches"],
+        "launches_auto": auto["count_launches"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq",
@@ -1949,7 +2274,7 @@ def main() -> int:
         "also_replaces": BUILD_ALSO_REPLACES,
         "launches": x2["launches"],
         "launches_streamed": streamed["launches"],
-        "max_abs_err": build_worst,
+        "max_abs_err": max(build_worst, auto["group"]["max_abs_err"]),
         "ms": streamed_group["ms"],
         "plain_ms": streamed_group["plain_ms"],
         "bound_ms": streamed_group["bound_ms"],
@@ -1966,6 +2291,9 @@ def main() -> int:
         "plain_ms_8x5000000": pod_group["plain_ms"],
         "bound_ms_8x5000000": pod_group["bound_ms"],
         "bound_by_8x5000000": pod_group["bound_by"],
+        "launches_auto": auto["build_launches"],
+        "ms_shipped_29x5000000": auto["group"]["ms"],
+        "bound_ms_shipped_29x5000000": auto["group"]["bound_ms"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq_shard",

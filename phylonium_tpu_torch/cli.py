@@ -10,7 +10,12 @@ environment switches (``PHYLONIUM_TPU_STREAM``,
 ``PHYLONIUM_TPU_STREAM_GROUP``, ``PHYLONIUM_TPU_LOWMEM``,
 ``PHYLONIUM_TPU_LOWMEM_BYTES``), and so is the serial path's device
 pileup (``PHYLONIUM_TPU_DEVICE_PILEUP=1``); the port adds no flag for
-them. ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
+them. With 'auto' counting the run is routed as the JAX package routes
+it, from the port's calibration store (utils/calibration.py): on a CUDA
+device the dispatch model may send the count to the host, the stream
+gate may stream, and the early query shipper (core/query_ship.py) copies
+each feeding group's 2-bit codes to the card while the files are read.
+``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
 (both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
 writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
 
@@ -38,14 +43,16 @@ import numpy as np
 
 from phylonium_tpu_torch import __version__
 from phylonium_tpu_torch.config import PROG, ConfigError, TorchRunConfig
-from phylonium_tpu_torch.core.lowmem import should_lowmem
+from phylonium_tpu_torch.core.lowmem import group_rows_for, should_lowmem
 from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO, check_mesh, process
+from phylonium_tpu_torch.core.query_ship import QueryShipper, early_ship_eligible
 from phylonium_tpu_torch.core.reference_pick import pick_first_pass, pick_second_pass
 from phylonium_tpu_torch.data.sequence import join
 from phylonium_tpu_torch.io.fasta import read_genome
 from phylonium_tpu_torch.io.phylip import print_matrix
 from phylonium_tpu_torch.native import build as native_build
 from phylonium_tpu_torch.parallel.multihost import world
+from phylonium_tpu_torch.utils import calibration
 from phylonium_tpu_torch.utils.platform import resolve_device
 from phylonium_tpu_torch.utils.profile import profiled
 
@@ -388,14 +395,21 @@ def _split_device(argv: list[str]) -> tuple[str, list[str]] | None:
     return device, rest
 
 
-def _read_all(file_names: list[str], workers: int, compact: bool):
+def _read_all(file_names: list[str], workers: int, compact: bool, shipper=None):
     """Read and join every genome, in order, a bounded few files ahead;
-    with ``compact``, 2-bit compact each one as it arrives."""
+    with ``compact``, 2-bit compact each one as it arrives; hand each to
+    ``shipper`` in query order (compacted first: the shipper then works
+    from the per-genome packs)."""
 
     def joined(genome):
         seq = join(genome)
         if compact:
             seq.compact()
+        if shipper is not None:
+            if seq.compacted:
+                shipper.add_seq(seq)
+            else:
+                shipper.add(seq.as_array())
         return seq
 
     with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -420,6 +434,25 @@ def _predicts_lowmem(file_names: list[str], cfg: TorchRunConfig) -> bool:
     except OSError:
         return False
     return should_lowmem(len(file_names), est_bp, cfg)
+
+
+def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
+    """The early query shipper of this run, or None (JAX cli.py:398-434):
+    where ``early_ship_eligible`` says the streamed device compare is
+    worth it, groups of the streamed feeder's size, or of the low-memory
+    group predicted from the file sizes; the largest file bounds the
+    reference's length for the groups' int32 cuts."""
+    if not early_ship_eligible(cfg, file_names):
+        return None
+    sizes = [os.path.getsize(f) for f in file_names]
+    group = None
+    if lowmem:
+        est_bp = int(sum(sizes) * 0.98)
+        group = group_rows_for(len(file_names), max(1, est_bp // len(file_names)))
+    return QueryShipper(
+        len(file_names), resolve_device(cfg.device), group_rows=group,
+        ref_len_bound=max(sizes), store=calibration.for_device(cfg.device),
+    )
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -469,10 +502,27 @@ def main(argv: list[str] | None = None) -> int:
         else:
             set_threads(cfg.threads)
 
+    lowmem = _predicts_lowmem(file_names, cfg)
+    try:
+        cfg._query_shipper = _start_shipper(file_names, cfg, lowmem)
+    except OSError as e:
+        print(f"{PROG}: {e.filename}: {e.strerror}", file=sys.stderr)
+        return e.errno or 1
+    try:
+        return _run(cfg, file_names, lowmem)
+    finally:
+        if cfg._query_shipper is not None:
+            cfg._query_shipper.stop()
+            cfg._query_shipper = None
+
+
+def _run(cfg: TorchRunConfig, file_names: list[str], lowmem: bool) -> int:
+    """Read, pick the reference, run the pipeline (twice with ``-2``),
+    print the matrix and the run report."""
     try:
         queries = _read_all(
             file_names, max(cfg.threads or min(8, len(file_names)), 1),
-            _predicts_lowmem(file_names, cfg),
+            lowmem, cfg._query_shipper,
         )
     except OSError as e:
         print(f"{PROG}: {e.filename}: {e.strerror}", file=sys.stderr)

@@ -5,10 +5,12 @@
 port carries its own host layer and imports nothing of that package. Its
 messages name the port's program. ``TorchRunConfig`` adds the torch device
 the port counts on, builds pileup rows on and computes hybrid mapping's
-bitmaps on. The copy leaves out the early query shipper's handle and
-``auto_device_min_gbp`` (``PHYLONIUM_TPU_AUTO_DEVICE_GBP``), the JAX
-package's threshold for sending 'auto' counting to its device: the port
-has no shipper, and its 'auto' always counts on ``--device``.
+bitmaps on. ``auto_device_min_gbp`` (``PHYLONIUM_TPU_AUTO_DEVICE_GBP``) is
+the work above which 'auto' counting on a CUDA device stays on the card
+while no copy rate is calibrated (core/pipeline._auto_prefers_host); its
+default was measured on the H100's machine, not taken from the JAX
+package. ``_query_shipper`` is the CLI's early query shipper
+(core/query_ship.py).
 
 The reference uses a global FLAGS bitfield plus assorted globals
 (`src/global.h:7-23`); here the same knobs live in one dataclass that is
@@ -27,6 +29,16 @@ __all__ = ["PROG", "ConfigError", "RunConfig", "TorchRunConfig"]
 PROG = "phylonium-tpu-torch"
 
 
+# the pair work (Gbp) above which the card's serial count (pack, pinned
+# copy, kernels, fetch) beats the host count: chip_smoke.py's "auto
+# dispatch" phase on an "NVIDIA H100 80GB HBM3, 700.00 W" machine, on the
+# host pileup of 5 Mbp genomes: the host was faster from 29 to 160 rows
+# and the two took the same time at 232 rows (133.98 Gbp: 0.5415 s
+# against 0.5433 s). Below 16 rows the card won by a few ms; the static
+# rule sends those few-ms panels to the host as well.
+_AUTO_DEVICE_MIN_GBP = 134.0
+
+
 class ConfigError(ValueError):
     """A user-facing configuration/limit error from the pipeline.
 
@@ -34,6 +46,23 @@ class ConfigError(ValueError):
     reference's errx paths) — any other exception is a defect and
     keeps its traceback.
     """
+
+
+def _env_float(name: str, default: float) -> float:
+    import os
+
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        print(
+            f"{PROG}: ignoring malformed {name}={raw!r} "
+            f"(expected a number); using {default}",
+            file=sys.stderr,
+        )
+        return default
 
 
 @dataclass
@@ -92,3 +121,19 @@ class TorchRunConfig(RunConfig):
     # torch device of the pair count, the pileup build and the hybrid
     # bitmaps: 'cuda' | 'cpu'
     device: str = "cuda"
+    # 'auto' counting on a CUDA device sends panels with at least this
+    # much pair work (pairs x columns, in Gbp) to the card while no copy
+    # rate is calibrated; below it the host count wins. Tune per
+    # deployment: PHYLONIUM_TPU_AUTO_DEVICE_GBP.
+    auto_device_min_gbp: float = field(
+        default_factory=lambda: _env_float(
+            "PHYLONIUM_TPU_AUTO_DEVICE_GBP", _AUTO_DEVICE_MIN_GBP
+        )
+    )
+    # runtime handle: the CLI's early query shipper
+    # (core/query_ship.QueryShipper), set while reading so 2-bit query
+    # codes reach the device before the pipeline starts
+    _query_shipper: object | None = field(
+        default=None, repr=False, compare=False
+    )
+

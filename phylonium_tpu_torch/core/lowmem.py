@@ -178,16 +178,24 @@ def map_count_lowmem(
 
     Returns (subs, homs, timings, info): ``timings`` holds ``map+feed``
     and ``compare``; ``info`` the carrier, the group size, the number of
-    homologies and, on the device, the feeder's groups.
+    homologies and, on the device, the feeder and its groups. The CLI's
+    early shipper (``cfg._query_shipper``), which took the compacted
+    genomes at read time, sets the group size and feeds the feeder.
     """
     n = len(queries)
     ref_len = len(ref.subject)
     avg_len = max(1, sum(len(q) for q in queries) // max(n, 1))
-    group = group_rows_for(n, avg_len)
+    shipper = cfg._query_shipper
+    # the early shipper's group boundaries win (its groups were sized
+    # from file sizes at read time; matching them keeps every take() a
+    # boundary hit)
+    group = shipper.group_rows if shipper is not None else group_rows_for(n, avg_len)
     feeder = None
     if cfg.count_backend != "host":
         device = resolve_device(cfg.device)
-        feeder = DeviceRowFeeder(n, ref_len, device)
+        feeder = DeviceRowFeeder(n, ref_len, device, shipper=shipper)
+    elif shipper is not None:
+        shipper.cancel()  # the windowed host count builds nothing
 
     timings: dict = {}
     harrs: list = [None] * n
@@ -229,5 +237,6 @@ def map_count_lowmem(
             subs, homs = feeder.finish()
             info["carrier"] = carrier(feeder.device)
             info["groups"] = feeder.groups
+            info["feeder"] = feeder
     cbar.finish()
     return subs, homs, timings, info

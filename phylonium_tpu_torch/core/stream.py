@@ -11,7 +11,9 @@ into one preallocated [N, W] panel while the host maps the next group.
 ``built()`` makes the current stream wait on the groups' events and
 returns the panel; ``finish()`` counts it (``ops.pair_count.pair_counts_rows``).
 The same feeder builds the serial path's device pileup
-(``ops.pileup_device.build_pileup_device``).
+(``ops.pileup_device.build_pileup_device``). Given the CLI's early query
+shipper (core/query_ship.py), the worker takes each group's 2-bit codes
+resident on the card and preps only the records and the overlay.
 
 What the card changes against the JAX design:
 
@@ -83,10 +85,17 @@ class DeviceRowFeeder:
     ``rows`` (default ``n``) sizes the panel: rows ``n`` and beyond hold
     packed INVALID, written on the feeder's stream before any build, and
     count nothing (the pod feeder's padding rows, parallel/stream_mp.py).
+
+    ``shipper`` (core/query_ship.QueryShipper) holds groups whose 2-bit
+    codes were copied to the device while the files were read: the
+    worker takes each fed group's codes from it (``taken``) and packs
+    only the groups it does not hold (``repacked``); fed groups are cut
+    as the shipper cut them. What the shipper's worker hit is raised
+    here.
     """
 
     def __init__(self, n: int, ref_len: int, device: torch.device,
-                 rows: int | None = None):
+                 rows: int | None = None, shipper=None):
         rows = n if rows is None else rows
         if rows < n:
             raise ValueError(f"a panel of {rows} rows cannot hold {n} genomes")
@@ -95,6 +104,9 @@ class DeviceRowFeeder:
         self.device = device
         self.width = packed_width(ref_len)
         self.groups = 0  # groups the worker built
+        self._shipper = shipper
+        self.taken = 0  # groups built from the shipper's resident codes
+        self.repacked = 0  # groups the shipper did not hold, packed here
         self._rows_done = 0
         self._events: list = []
         self._error: BaseException | None = None
@@ -139,20 +151,35 @@ class DeviceRowFeeder:
                 self._q.task_done()
 
     def _build(self, lo: int, queries: list, homologies: list) -> None:
-        inputs = pileup_device.prepare_group(queries, homologies, self.ref_len)
+        resident = None
+        if self._shipper is not None:
+            resident = self._shipper.take(lo, lo + len(queries))
+            if resident is None:
+                self.repacked += 1
+            else:
+                self.taken += 1
+        inputs = pileup_device.prepare_group(
+            queries, homologies, self.ref_len,
+            resident=None if resident is None else resident[:3],
+        )
         out = self.panel[lo : lo + len(queries)]
         if self._stream is None:
-            tensors = [torch.from_numpy(a) for a in inputs]
+            tensors = [a if torch.is_tensor(a) else torch.from_numpy(a) for a in inputs]
             pileup_device.build_packed_rows(
                 tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
             )
             self.groups += 1
             return
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            if resident is not None:
+                # the shipper's copy ran on its own stream
+                self._stream.wait_event(resident.event)
+                resident.words.record_stream(self._stream)
             # pinned staging: the copies run on the side stream, and the
             # pinned allocator keeps each buffer until its copy is done
             tensors = [
-                torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
+                a if torch.is_tensor(a)
+                else torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
                 for a in inputs
             ]
             pileup_device.build_packed_rows(
@@ -174,8 +201,13 @@ class DeviceRowFeeder:
                 f"feeder got {self._rows_done + len(queries)} rows for "
                 f"{self.n} genomes"
             )
+        # the shipper cut its groups before the reference was known, with
+        # a bound on its length; the larger length cuts no less
+        cut_len = self.ref_len
+        if self._shipper is not None:
+            cut_len = max(cut_len, self._shipper.ref_len_bound)
         bounds = pileup_device.row_groups(
-            [len(q) for q in queries], self.ref_len, max(len(queries), 1)
+            [len(q) for q in queries], cut_len, max(len(queries), 1)
         )
         for lo, hi in bounds:
             self._q.put((self._rows_done + lo, queries[lo:hi], homologies[lo:hi]))
@@ -189,6 +221,8 @@ class DeviceRowFeeder:
         """Wait for the worker to launch every group; return the panel,
         with the current stream ordered after its builds."""
         self._stop()
+        if self._error is None and self._shipper is not None:
+            self._error = self._shipper.error()
         if self._error is not None:
             raise self._error
         if self._rows_done != self.n:
@@ -204,6 +238,22 @@ class DeviceRowFeeder:
     def finish(self) -> tuple[np.ndarray, np.ndarray]:
         """Wait for every group, then count the panel on its device."""
         return pair_count.pair_counts_rows(self.built())
+
+    def ship_account(self) -> dict | None:
+        """The early shipper's account of this feeder's run (None without
+        one): pieces shipped, MB, the card's copy rate, and the fed groups
+        taken resident and repacked here."""
+        shipper = self._shipper
+        if shipper is None:
+            return None
+        mb_s = shipper.achieved_mb_s()
+        return {
+            "groups": shipper.shipped_groups(),
+            "mb": round(shipper.shipped_bytes() / 1e6, 1),
+            "mb_s": round(mb_s, 2) if mb_s else None,
+            "taken": self.taken,
+            "repacked": self.repacked,
+        }
 
     def cancel(self) -> None:
         """Drop the groups not yet built and stop the worker (the run is

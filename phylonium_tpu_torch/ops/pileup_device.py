@@ -68,6 +68,7 @@ class GroupInputs(NamedTuple):
     """Host arrays of one group build, as the kernel reads them."""
 
     words: np.ndarray      # int32 [n_words]: the 2-bit codes' uint32 words
+                           # (a device tensor where the group is resident)
     intervals: np.ndarray  # int64 [rows, H, 4]: (start, end, B, dir)
     offsets: np.ndarray    # int64 [rows + 1]: row g's overlay entries
     cols: np.ndarray       # int32 [K]: overlay columns, sorted per row
@@ -92,11 +93,17 @@ def sort_overlay(overlay, rows: int):
     )
 
 
-def prepare_group(queries: list, homologies: list, ref_len: int) -> GroupInputs:
+def prepare_group(queries: list, homologies: list, ref_len: int,
+                  resident=None) -> GroupInputs:
     """Host prep of one group: 2-bit words, records and the sorted overlay.
 
     ``homologies`` holds per genome a list of Homology objects or a raw
-    [H, 5] int64 array of the native mapper. Raises ConfigError, as the
+    [H, 5] int64 array of the native mapper. ``resident`` (optional) is a
+    (words, bases, seps) triple for THIS group whose words already lie on
+    the device (the early query shipper's, core/query_ship.py): then
+    ``group_payload`` is skipped and the returned ``words`` is that
+    tensor, as the JAX ``build_packed_rows_device(resident=...)`` does
+    (phylonium_tpu/ops/pileup_device.py:234). Raises ConfigError, as the
     JAX package does, when the group's query bases need more than int32
     indexing.
     """
@@ -106,12 +113,15 @@ def prepare_group(queries: list, homologies: list, ref_len: int) -> GroupInputs:
             "device pileup group exceeds int32 indexing; use smaller "
             "row groups"
         )
-    packed32, bases, seps = group_payload(queries)
+    if resident is None:
+        packed32, bases, seps = group_payload(queries)
+        words = packed32.view(np.int32)
+    else:
+        words, bases, seps = resident
     intervals = prep_intervals(homologies, bases, ref_len)
     overlay = build_overlay(intervals, queries, bases, seps, ref_len)
     return GroupInputs(
-        packed32.view(np.int32), intervals,
-        *sort_overlay(overlay, intervals.shape[0]),
+        words, intervals, *sort_overlay(overlay, intervals.shape[0]),
     )
 
 

@@ -204,7 +204,10 @@ def test_device_pileup_cli_on_card(card, tmp_path, monkeypatch):
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
 
     files = write_fasta_panel(tmp_path, 7, 20_000, seed=6, contigs=2)
-    for flags in ([], ["--complete-deletion"]):
+    # the count pinned on the card: 'auto' would send so small a panel to
+    # the host, and X2 builds only for a count on the card
+    for flags in (["--count-backend", "device"],
+                  ["--count-backend", "device", "--complete-deletion"]):
         monkeypatch.delenv("PHYLONIUM_TPU_DEVICE_PILEUP", raising=False)
         rc, serial = _cli([*flags, *files])
         assert rc == 0 and LAST_RUN_INFO["build_kernel_launches"] == 0

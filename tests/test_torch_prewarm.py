@@ -39,7 +39,7 @@ PLAN_CASES = {
     "unparsed-device": ({"device": "tpu!"}, {}, 1, None),
     "host-count-hybrid": ({"count_backend": "host", "map_backend": "hybrid"}, {}, 1,
                           (False, False)),
-    "serial": ({}, {}, 1, (True, False)),
+    "serial": ({}, {"PHYLONIUM_TPU_STREAM": "0"}, 1, (True, False)),
     "serial-device": ({"count_backend": "device"}, {}, 1, (True, False)),
     "serial-pallas": ({"count_backend": "pallas"}, {}, 1, (True, False)),
     "hybrid": ({"map_backend": "hybrid"}, {}, 1, (True, False)),
@@ -67,10 +67,12 @@ def test_which_runs_prewarm(name, clean_env):
     for key, value in env.items():
         clean_env.setenv(key, value)
     clean_env.setattr(pipeline, "world", lambda: (size, 0))
+    # a threshold of 0 Gbp keeps the dispatch model's count on the card
+    clean_env.setenv("PHYLONIUM_TPU_AUTO_DEVICE_GBP", "0")
     cfg = TorchRunConfig(**{"device": "cuda", **fields})
-    assert pipeline._prewarm_plan(29, 29 * 5_000, cfg) == plan
+    assert pipeline._prewarm_plan(29, 5_000, 29 * 5_000, cfg) == plan
     if plan is None:
-        assert pipeline.prewarm_device(29, 29 * 5_000, cfg) is None
+        assert pipeline.prewarm_device(29, 5_000, 29 * 5_000, cfg) is None
 
 
 def _panel(n: int = 4, length: int = 3_000):
@@ -100,7 +102,7 @@ def test_a_prewarm_error_is_raised_at_the_join(env, clean_env):
     def fail(device, count, build):
         raise err
 
-    clean_env.setattr(pipeline, "_prewarm_plan", lambda n, total_bp, cfg: (True, True))
+    clean_env.setattr(pipeline, "_prewarm_plan", lambda *args: (True, True))
     clean_env.setattr(pipeline, "_warm", fail)
     seqs = _panel()
     calls = pileup_device.PLAIN_CALLS
@@ -153,7 +155,7 @@ def test_prewarm_work_stays_out_of_the_counters(env, clean_env):
     clean_env.setattr(pipeline, "cross_counts_reference",
                       spy("pair_count", pipeline.cross_counts_reference))
     clean_env.setattr(pileup_device, "_plain", spy("pileup_build", pileup_device._plain))
-    clean_env.setattr(pipeline, "_prewarm_plan", lambda n, total_bp, cfg: (True, True))
+    clean_env.setattr(pipeline, "_prewarm_plan", lambda *args: (True, True))
     got = pipeline.process(seqs[0], seqs, cfg)
     assert sorted(warm_calls) == ["pair_count", "pileup_build"]
     assert pipeline.LAST_RUN_INFO["prewarm"]["launches"] == {"pair_count": 0,

@@ -157,9 +157,12 @@ def test_should_stream_conditions(monkeypatch):
         backend_name = "native"
 
     ref = FakeRef()
+    monkeypatch.delenv("PHYLONIUM_TPU_CALIBRATION_FILE", raising=False)
+    # the static rule at 1 Gbp of pair work, whatever the measured default
+    monkeypatch.setenv("PHYLONIUM_TPU_AUTO_DEVICE_GBP", "1")
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
-    assert should_stream(TorchRunConfig(), ref)
-    assert should_stream(TorchRunConfig(device="cpu"), ref)
+    assert should_stream(29, 5_000, TorchRunConfig(), ref)
+    assert should_stream(29, 5_000, TorchRunConfig(device="cpu"), ref)
     # excluded paths stay serial even when forced
     for excluded in (
         TorchRunConfig(complete_deletion=True),
@@ -170,15 +173,18 @@ def test_should_stream_conditions(monkeypatch):
         TorchRunConfig(checkpoint_dir="/tmp/x"),
         TorchRunConfig(map_backend="hybrid"),
     ):
-        assert not should_stream(excluded, ref)
+        assert not should_stream(29, 5_000, excluded, ref)
     ref.backend_name = "numpy"
-    assert not should_stream(TorchRunConfig(), ref)
+    assert not should_stream(29, 5_000, TorchRunConfig(), ref)
     ref.backend_name = "native"
-    # opt-in: unset and 0 keep the serial phases
+    # 0 keeps the serial phases; unset leaves it to the gate, which keeps a
+    # small panel serial and the CPU always serial
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "0")
-    assert not should_stream(TorchRunConfig(), ref)
+    assert not should_stream(29, 5_000, TorchRunConfig(), ref)
     monkeypatch.delenv("PHYLONIUM_TPU_STREAM")
-    assert not should_stream(TorchRunConfig(), ref)
+    assert not should_stream(29, 5_000, TorchRunConfig(), ref)
+    assert not should_stream(29, 5_000_000, TorchRunConfig(device="cpu"), ref)
+    assert should_stream(29, 5_000_000, TorchRunConfig(), ref)
 
 
 def _env(**extra):

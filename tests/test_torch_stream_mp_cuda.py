@@ -146,8 +146,11 @@ def test_a_fresh_process_reports_its_prewarm(card, tmp_path):
     for key in ("PHYLONIUM_TPU_STREAM", "PHYLONIUM_TPU_DEVICE_PILEUP", "PHYLONIUM_TPU_LOWMEM"):
         env.pop(key, None)
     proc = subprocess.run(
-        [sys.executable, "-m", "phylonium_tpu_torch", "--progress=never", "--device",
-         "cuda", *files], capture_output=True, text=True, cwd=tmp_path, env=env, timeout=600,
+        # the count pinned on the card: 'auto' would send so small a panel
+        # to the host, with no prewarm
+        [sys.executable, "-m", "phylonium_tpu_torch", "--progress=never", "--count-backend",
+         "device", "--device", "cuda", *files],
+        capture_output=True, text=True, cwd=tmp_path, env=env, timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     info = json.loads((tmp_path / "report.json").read_text())
