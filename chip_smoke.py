@@ -2,6 +2,8 @@
 """Smoke run of the torch port (phylonium_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --devd-turns PAIRS   # phases 1-2, then only the
+                                               # server against in-process
 
 Phases, each printed with its wall time; any failure ends the run with a
 non-zero exit and no result line:
@@ -62,8 +64,7 @@ non-zero exit and no result line:
     JAX package's CLI with host counting and the same flags, one build
     launch a group; then the host pileup and X2 timed in turns (host, X2,
     X2, host) in this process at 29 x 5 Mbp, plain and with
-    ``--complete-deletion``, and at phase 11's 116 x 5 Mbp, with each
-    run's phase timings;
+    ``--complete-deletion``, with each run's phase timings;
 13. ``--profile``: the 29 x 5 Mbp panel with ``--profile=DIR`` and X2 on
     the card; the trace must hold the phase ranges and one device event
     for each pair-count and pileup-build launch, the prewarm's included;
@@ -125,7 +126,24 @@ non-zero exit and no result line:
     byte for byte against the JAX package's CLI with host counting, with
     the store it read, the models' decisions and the route: no launch on
     the host route, every fed group taken from the shipper (none
-    repacked), one build launch a group and one count call when streamed.
+    repacked), one build launch a group and one count call when streamed;
+20. the device server (``serve/``, ``PHYLONIUM_TPU_DEVD=1``), every run a
+    CLI child process and every daemon on a socket in the phase's
+    directory: phase 11's 116 x 5 Mbp panel under
+    ``PHYLONIUM_TPU_STREAM=force``, a cold run that spawns the daemon (4
+    groups shipped, 0 hits), then two turns of [a warm run through it (4
+    hits, 0 bytes), an in-process run]; the 29 x 5 Mbp panel with ``-2``
+    (pass 2 built from the pieces pass 1 parked) and under
+    ``PHYLONIUM_TPU_LOWMEM=force``; every run byte for byte against the
+    JAX package's CLI with host counting, the daemon's build and
+    pair-count launches reported, and no devd run's CLI process
+    initializing CUDA; each run's wall, ``devd_count_s``, the client's
+    wait for ``finish`` (the devd tail of ``_stream_predicts_win``), cache
+    hits, MB shipped and the daemon's ``memory_reserved``; then, at 6 x
+    200 kbp, an injected poison (exit 1, the server named, the daemon
+    gone, the next run right) and a daemon SIGKILLed after its first
+    ``group`` reply (non-zero exit, no matrix, no hang); no daemon
+    outlives the phase.
 
 Each phase runs with a calibration store of its own in a temporary
 directory (``PHYLONIUM_TPU_CALIBRATION_FILE``); the phases that drive one
@@ -2091,13 +2109,413 @@ def auto_dispatch(device, eco_files: list[str], eco_reference: bytes,
     if not streamed:
         raise AssertionError("no 'auto' run streamed: the shipped route was not driven")
     return {"constants": constants, "group": group, "runs": runs,
+            "wide_reference": panels["116 x 5 Mbp"][1],
             "build_launches": sum(r["counts"]["build_launches"] for r in runs.values()),
             "count_launches": sum(r["counts"]["count_launches"] for r in runs.values())}
 
 
-def main() -> int:
+# One CLI run in a child process for the device-server phase: each pass's
+# LAST_RUN_INFO, whether this process initialized CUDA, and the clock at
+# its first line, after its imports, after cli.main and at its end go to
+# the file named by the first argument.
+_DEVD_CHILD = """
+import time
+started, t0 = time.time(), time.perf_counter()
+import json, sys
+import phylonium_tpu_torch.cli as cli
+from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+passes = []
+process = cli.process
+def recorded(*args, **kwargs):
+    counts = process(*args, **kwargs)
+    passes.append(json.loads(json.dumps(LAST_RUN_INFO)))
+    return counts
+cli.process = recorded
+t1 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+t2 = time.perf_counter()
+import torch
+with open(sys.argv[1], "w") as f:
+    json.dump({"rc": rc, "passes": passes, "jax": "jax" in sys.modules,
+               "cuda_initialized": torch.cuda.is_initialized(), "started": started,
+               "import_s": t1 - t0, "main_s": t2 - t1, "ended": time.time()}, f)
+sys.exit(rc)
+"""
+
+_DEVD_ENV = dict.fromkeys((
+    "PHYLONIUM_TPU_DEVD", "PHYLONIUM_TPU_DEVD_INJECT", "PHYLONIUM_TPU_LOWMEM",
+    "PHYLONIUM_TPU_STREAM_GROUP", "PHYLONIUM_TPU_DEVICE_PILEUP", "PHYLONIUM_TPU_RUN_REPORT",
+    "PHYLONIUM_TPU_SHARDED_EXTEND"))
+
+
+def devd_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 300) -> dict:
+    """The port's CLI in a child process (its own process group, killed
+    whole at the timeout): rc, stdout, stderr, wall, each pass's LAST_RUN_INFO,
+    whether the child initialized CUDA, and the wall in pieces: ``start_s``
+    (the interpreter's start, to the child's first line), ``import_s``,
+    ``main_s`` (``cli.main``) and ``exit_s`` (from the child's last line to
+    its exit: the interpreter's and, where it made one, the CUDA context's
+    teardown)."""
+    import signal
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for key, value in {**_DEVD_ENV, **env_extra}.items():
+        if value is None:
+            env.pop(key, None)
+        else:
+            env[key] = value
+    report = os.path.join(cwd, "devd_child.json")
+    if os.path.exists(report):
+        os.unlink(report)
+    t0, spawned = time.perf_counter(), time.time()
+    proc = subprocess.Popen([sys.executable, "-c", _DEVD_CHILD, report, *args], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"the CLI hung: no exit within {timeout} s ({env_extra})")
+    wall, exited = time.perf_counter() - t0, time.time()
+    result = {"rc": proc.returncode, "out": out, "err": err.decode(errors="replace"),
+              "wall": wall, "passes": [], "cuda_initialized": None}
+    if os.path.exists(report):
+        with open(report) as f:
+            child = json.load(f)
+        if child["jax"]:
+            raise AssertionError("a CLI child imported jax")
+        result.update(passes=child["passes"], cuda_initialized=child["cuda_initialized"],
+                      start_s=child["started"] - spawned, import_s=child["import_s"],
+                      main_s=child["main_s"], exit_s=exited - child["ended"])
+    return result
+
+
+def pid_alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def daemon_pids(sock: str) -> set[int]:
+    """Every daemon that served ``sock``, from the log the CLI's spawns
+    append to ("devd: serving ... (pid N, ...)")."""
+    import re
+
+    try:
+        with open(sock + ".log") as f:
+            return {int(m) for m in re.findall(r"devd: serving .* \(pid (\d+),", f.read())}
+    except OSError:
+        return set()
+
+
+def stop_daemon(sock: str) -> int | None:
+    """SIGTERM the daemon of ``sock`` by its pidfile and wait for it; fail
+    unless it is gone and its socket and pidfile are removed. A pidfile
+    whose daemon died by SIGKILL is removed here, with its socket."""
+    import signal
+
+    try:
+        with open(sock + ".pid") as f:
+            pid = int(f.read().strip())
+    except OSError:
+        if os.path.exists(sock):
+            raise AssertionError(f"{sock} without a pidfile")
+        return None
+    if not pid_alive(pid):
+        for path in (sock, sock + ".pid"):
+            if os.path.exists(path):
+                os.unlink(path)
+        return pid
+    os.kill(pid, signal.SIGTERM)
+    deadline = time.time() + 30
+    while time.time() < deadline and pid_alive(pid):
+        time.sleep(0.05)
+    if pid_alive(pid):
+        os.kill(pid, signal.SIGKILL)
+        raise AssertionError(f"the daemon {pid} outlived SIGTERM by 30 s")
+    if os.path.exists(sock) or os.path.exists(sock + ".pid"):
+        raise AssertionError(f"the daemon {pid} left {sock} behind")
+    return pid
+
+
+def devd_check(label: str, r: dict, reference: bytes, groups: int, passes: int = 1,
+               device_name: str = "cuda") -> dict:
+    """One device-server run: byte for byte against ``reference``, the
+    server's launches (one build a group, one count call; plain calls on a
+    CPU server), every group taken from the shipper, no CUDA in the CLI
+    process. Returns the last pass."""
+    from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
+
+    card = device_name == "cuda"
+    launches = {"build": groups * card, "build_plain": groups * (not card),
+                "count": LAUNCHES_PER_CALL * card, "count_plain": int(not card)}
+    if r["rc"] != 0:
+        raise AssertionError(f"device-server run '{label}' exited {r['rc']}: {r['err'][-2000:]}")
+    if r["out"] != reference:
+        raise AssertionError(f"device-server run '{label}' differs from the JAX package's")
+    if r["cuda_initialized"] is not False or len(r["passes"]) != passes:
+        raise AssertionError(f"run '{label}': CUDA initialized {r['cuda_initialized']}, "
+                             f"{len(r['passes'])} passes")
+    for info in r["passes"]:
+        server, ship = info.get("devd"), info.get("early_ship")
+        if (server is None or server["launches"] != launches or info["cuda_initialized"] or info["kernel_launches"]
+                or info["build_kernel_launches"] or ship is None
+                or ship["taken"] != groups or ship["repacked"]):
+            raise AssertionError(f"run '{label}': {json.dumps(info)}")
+    return r["passes"][-1]
+
+
+def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[str],
+                  eco_reference: bytes, tmp: str, device_name: str = "cuda") -> dict:
+    """Phase 20: the device server (serve/) against the in-process route.
+
+    Every daemon serves a socket in this phase's directory and is stopped
+    in the ``finally``; none may outlive the phase. The 116 x 5 Mbp panel
+    streamed under ``PHYLONIUM_TPU_STREAM=force``: a cold run that spawns
+    the daemon, then two turns of [a warm run through it, an in-process
+    run]; the 29 x 5 Mbp panel with ``-2`` and under
+    ``PHYLONIUM_TPU_LOWMEM=force``; then the faults, at 6 x 200 kbp: an
+    injected poison (the run after it spawns a fresh daemon), and a
+    daemon killed after its first ``group`` reply. Every run is a child
+    process, byte for byte against the JAX package's host count; no devd run's CLI initializes
+    CUDA. (``device_name="cpu"`` rehearses the phase without a card.)"""
+    from phylonium_tpu_torch.core.lowmem import group_rows_for
+    from phylonium_tpu_torch.core.stream import effective_group_rows
+    from phylonium_tpu_torch.ops.states import packed_width
+    from phylonium_tpu_torch.serve.daemon import PROTOCOL
+
+    directory = os.path.join(tmp, "devd")
+    os.makedirs(directory, exist_ok=True)
+    sock = os.path.join(directory, "d.sock")
+    base = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
+            "PHYLONIUM_TPU_STREAM": "force"}
+    devd_env = {**base, "PHYLONIUM_TPU_DEVD": "1"}
+    card = device_name == "cuda"
+    wide = ["--progress=never", "--device", device_name, *wide_files]
+    eco = ["--progress=never", "--device", device_name, *eco_files]
+    n = len(wide_files)
+    groups = -(-n // effective_group_rows(n))
+    eco_groups = -(-len(eco_files) // effective_group_rows(len(eco_files)))
+    runs = {}
+    try:
+        for label in ("cold", "warm 1", "in-process 1", "warm 2", "in-process 2"):
+            served = not label.startswith("in-process")
+            r = devd_child(wide, directory, devd_env if served else base)
+            if served:
+                info = devd_check(label, r, wide_reference, groups, device_name=device_name)
+                ship, server = info["early_ship"], info["devd"]
+                hits = 0 if label == "cold" else groups
+                if ship["cache_hits"] != hits or (ship["mb"] == 0.0) != bool(hits):
+                    raise AssertionError(f"run '{label}': early ship {ship}")
+                if server["socket"] != sock or server["protocol"] != PROTOCOL:
+                    raise AssertionError(f"run '{label}': server {server}")
+            else:
+                if r["rc"] != 0 or r["out"] != wide_reference:
+                    raise AssertionError(f"in-process run '{label}': {r['err'][-2000:]}")
+                info = r["passes"][-1]
+                built = info["build_kernel_launches" if card else "build_plain_calls"]
+                if info.get("devd") or built != groups or info["cuda_initialized"] != card:
+                    raise AssertionError(f"in-process run '{label}': {json.dumps(info)}")
+                ship, server = info["early_ship"], None
+            runs[label] = {"wall": r["wall"], "timings": info["timings"],
+                           "devd_count_s": info.get("devd_count_s"),
+                           "finish_wait_s": server and server["finish_wait_s"],
+                           "cache_hits": ship["cache_hits"], "mb": ship["mb"],
+                           "launches": server and server["launches"],
+                           "memory_reserved": server and server["memory_reserved"]}
+            print(f"  {label:13s} {n} genomes: byte-identical to the JAX package's host count; "
+                  f"wall {r['wall']:.3f} s, devd_count_s {runs[label]['devd_count_s']}, finish "
+                  f"wait {runs[label]['finish_wait_s']}, {ship['cache_hits']} cache hits, "
+                  f"{ship['mb']} MB shipped, server launches {json.dumps(runs[label]['launches'])}"
+                  f", server memory_reserved {runs[label]['memory_reserved']}, CUDA initialized "
+                  f"in the CLI {r['cuda_initialized']}; phases {json.dumps(info['timings'])}",
+                  flush=True)
+        warm = [runs[k] for k in ("warm 1", "warm 2")]
+        local = [runs[k] for k in ("in-process 1", "in-process 2")]
+        # a panel left reserved by each run (a stream a run) grows the
+        # daemon by one panel a run
+        panel_bytes = n * packed_width(max(os.path.getsize(f) for f in wide_files))
+        grew = warm[1]["memory_reserved"] - warm[0]["memory_reserved"]
+        if card and grew >= panel_bytes:
+            raise AssertionError(f"the daemon's reserved memory grew by {grew} bytes between "
+                                 f"two warm runs of one panel ({panel_bytes} bytes a panel)")
+        tail = statistics.median(w["finish_wait_s"] for w in warm)
+        print(f"  devd tail (the client's wait for a warm server's finish, median of 2): "
+              f"{tail:.6f} s; warm walls {[round(w['wall'], 3) for w in warm]} s against "
+              f"in-process {[round(w['wall'], 3) for w in local]} s; the daemon's reserved "
+              f"memory grew by {grew} bytes between the warm runs", flush=True)
+
+        reference_2 = run_reference_cli(["--progress=never", "-2", *eco_files], directory)
+        r = devd_child(["-2", *eco], directory, devd_env)
+        devd_check("-2", r, reference_2, eco_groups, passes=2, device_name=device_name)
+        print(f"  -2, {len(eco_files)} genomes: byte-identical; both passes built from the pieces "
+              f"shipped once ({json.dumps(r['passes'][1]['early_ship'])}); wall "
+              f"{r['wall']:.3f} s", flush=True)
+
+        # the group the CLI predicts from the file sizes (cli._start_shipper)
+        est_bp = int(sum(os.path.getsize(f) for f in eco_files) * 0.98)
+        lowmem_groups = -(-len(eco_files) // group_rows_for(
+            len(eco_files), max(1, est_bp // len(eco_files))))
+        r = devd_child(eco, directory, {**devd_env, "PHYLONIUM_TPU_LOWMEM": "force"})
+        info = devd_check("low-memory", r, eco_reference, lowmem_groups,
+                          device_name=device_name)
+        if "lowmem" not in info:
+            raise AssertionError("the low-memory run took another path")
+        print(f"  low-memory, {len(eco_files)} genomes: byte-identical, {lowmem_groups} groups built in the "
+              f"server, devd_count_s {info['devd_count_s']}; wall {r['wall']:.3f} s", flush=True)
+
+        # the faults, each on a daemon the faulty run spawns, at a small
+        # panel in 3 groups: what they check does not depend on its size
+        small_dir = os.path.join(directory, "small")
+        os.makedirs(small_dir, exist_ok=True)
+        small_files = write_fasta(eco29_panel(6, 200_000, seed=6), small_dir)
+        small_reference = run_reference_cli(["--progress=never", *small_files], small_dir)
+        small = ["--progress=never", "--device", device_name, *small_files]
+        small_env = {**devd_env, "PHYLONIUM_TPU_STREAM_GROUP": "2"}
+        stop_daemon(sock)
+        r = devd_child(small, directory, {**small_env, "PHYLONIUM_TPU_DEVD_INJECT": "poison"})
+        deadline = time.time() + 30
+        while time.time() < deadline and os.path.exists(sock + ".pid"):
+            time.sleep(0.05)
+        if (r["rc"] != 1 or r["out"] or f"device server at {sock}" not in r["err"]
+                or "poisoned" not in r["err"] or os.path.exists(sock + ".pid")):
+            raise AssertionError(f"poisoned run: rc {r['rc']}, {r['err'][-2000:]}")
+        message = r["err"].strip().splitlines()[-1]
+        # the next run spawns a fresh daemon
+        r = devd_child(small, directory, small_env)
+        info = devd_check("after the poison", r, small_reference, 3, device_name=device_name)
+        print(f"  poison, {len(small_files)} x 200 kbp: exit 1, no matrix, '{message[:240]}'; "
+              f"the daemon exited, and the next run spawned pid {info['devd']['pid']} and "
+              f"printed the right matrix; wall {r['wall']:.3f} s", flush=True)
+
+        stop_daemon(sock)
+        r = devd_child(small, directory,
+                       {**small_env, "PHYLONIUM_TPU_DEVD_INJECT": "kill_after_group"},
+                       timeout=180)
+        killed = stop_daemon(sock)
+        if r["rc"] == 0 or r["out"] or killed is None or pid_alive(killed):
+            raise AssertionError(f"killed daemon: rc {r['rc']}, {r['err'][-2000:]}")
+        print(f"  killed daemon (SIGKILL after its first group reply): exit {r['rc']} in "
+              f"{r['wall']:.3f} s, no matrix, '{r['err'].strip().splitlines()[-1][:240]}'",
+              flush=True)
+    finally:
+        stop_daemon(sock)
+        alive = [pid for pid in daemon_pids(sock) if pid_alive(pid)]
+        if alive:
+            raise AssertionError(f"daemons outlived the phase: {alive}")
+    print(f"  {len(daemon_pids(sock))} daemons served the phase; none outlived it", flush=True)
+    return {"runs": runs, "tail_s": tail,
+            "build_launches": runs["warm 1"]["launches"]["build"],
+            "count_launches": runs["warm 1"]["launches"]["count"]}
+
+
+_PIECES = ("start_s", "import_s", "main_s", "exit_s")
+
+
+def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str,
+                        device_name: str = "cuda") -> dict:
+    """The warm device server against the in-process route at the panel of
+    ``files`` (``--devd-turns``; 116 x 5 Mbp on the card), ``pairs`` pairs
+    under ``PHYLONIUM_TPU_STREAM=force``. Each pair is a warm run through a
+    daemon that one cold run just spawned and filled, and an in-process run
+    with no daemon alive (it is stopped first, so no in-process run shares
+    the card with one); the pairs alternate which route runs first. Every
+    run is a CLI child, byte for byte against ``reference``, with its wall
+    in pieces (``devd_child``) and its phases. Prints each run, then the
+    medians by route and the in-process minus warm differences by pair."""
+    from phylonium_tpu_torch.core.stream import effective_group_rows
+
+    directory = os.path.join(tmp, "turns")
+    os.makedirs(directory, exist_ok=True)
+    sock = os.path.join(directory, "d.sock")
+    base = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
+            "PHYLONIUM_TPU_STREAM": "force"}
+    devd_env = {**base, "PHYLONIUM_TPU_DEVD": "1"}
+    args = ["--progress=never", "--device", device_name, *files]
+    groups = -(-len(files) // effective_group_rows(len(files)))
+    card = device_name == "cuda"
+
+    def run(label: str, served: bool) -> dict:
+        r = devd_child(args, directory, devd_env if served else base)
+        if served:
+            info = devd_check(label, r, reference, groups, device_name=device_name)
+            hits = 0 if label.startswith("cold") else groups
+            if info["early_ship"]["cache_hits"] != hits:
+                raise AssertionError(f"run '{label}': early ship {info['early_ship']}")
+        else:
+            if r["rc"] != 0 or r["out"] != reference:
+                raise AssertionError(f"in-process run '{label}': {r['err'][-2000:]}")
+            info = r["passes"][-1]
+            if info.get("devd") or info["cuda_initialized"] != card:
+                raise AssertionError(f"in-process run '{label}': {json.dumps(info)}")
+        row = {"label": label, "wall": r["wall"], "phases": sum(info["timings"].values()),
+               **{k: r[k] for k in _PIECES}}
+        row["main_outside_phases"] = row["main_s"] - row["phases"]
+        print(f"  {label:16s} wall {r['wall']:.3f} s = start {r['start_s']:.3f} + import "
+              f"{r['import_s']:.3f} + main {r['main_s']:.3f} (phases {row['phases']:.3f}) "
+              f"+ exit {r['exit_s']:.3f}; phases {json.dumps(info['timings'])}", flush=True)
+        return row
+
+    rows = []
+    try:
+        for i in range(pairs):
+            order = ("served", "in-process") if i % 2 == 0 else ("in-process", "served")
+            pair = {}
+            for route in order:
+                stop_daemon(sock)
+                if route == "served":
+                    rows.append(run(f"cold {i + 1}", True))
+                    pair["warm"] = run(f"warm {i + 1}", True)
+                    rows.append(pair["warm"])
+                else:
+                    pair["local"] = run(f"in-process {i + 1}", False)
+                    rows.append(pair["local"])
+            pair["first"] = order[0]
+    finally:
+        stop_daemon(sock)
+        alive = [pid for pid in daemon_pids(sock) if pid_alive(pid)]
+        if alive:
+            raise AssertionError(f"daemons outlived the turns: {alive}")
+
+    def by(prefix: str) -> list[dict]:
+        return [r for r in rows if r["label"].startswith(prefix)]
+
+    keys = ("wall", *_PIECES, "phases", "main_outside_phases")
+    medians = {route: {k: statistics.median(r[k] for r in by(prefix)) for k in keys}
+               for route, prefix in (("cold", "cold"), ("warm", "warm"),
+                                     ("in_process", "in-process"))}
+    warm, local = by("warm"), by("in-process")
+    diffs = {k: [round(b[k] - a[k], 6) for a, b in zip(warm, local)] for k in keys}
+    summary = {
+        "pairs": pairs, "panel": f"{len(files)} x {os.path.getsize(files[0])} bytes",
+        "medians_s": medians,
+        "in_process_minus_warm_s": diffs,
+        "median_in_process_minus_warm_s": {k: statistics.median(v) for k, v in diffs.items()},
+        "warm_faster_in": sum(d > 0 for d in diffs["wall"]),
+        "warm_first_pairs_median_wall_diff_s": statistics.median(diffs["wall"][0::2]),
+        "in_process_first_pairs_median_wall_diff_s": (
+            statistics.median(diffs["wall"][1::2]) if pairs > 1 else None),
+    }
+    print(f"  devd turns: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of the torch port on one card.")
+    parser.add_argument("--devd-turns", type=int, metavar="PAIRS",
+                        help="run only phases 1-2 and the warm device server against "
+                             "the in-process route at 116 x 5 Mbp, PAIRS pairs in "
+                             "alternating order (device_server_turns)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -2128,6 +2546,15 @@ def main() -> int:
         for line in _build.BUILD_INFO["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
+
+    if args.devd_turns:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_turns_") as tmp, \
+                phase("device server turns"):
+            files = write_fasta(eco29_panel(116, 5_000_000), tmp)
+            reference = run_reference_cli(["--progress=never", *files], tmp)
+            device_server_turns(args.devd_turns, files, reference, tmp)
+        print(info["nvidia_smi"].splitlines()[0], flush=True)
+        return 0
 
     with phase("edge shapes"):
         worst = check_edges(device)
@@ -2182,9 +2609,11 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         with phase("device pileup end to end"):
+            # no 116 x 5 Mbp turns here, to make room for phase 20 (PERF.md
+            # keeps their earlier numbers)
             x2 = end_to_end_device_pileup(
                 "cuda", eco_files, eco_dir,
-                [([], eco_files), (["--complete-deletion"], eco_files), ([], wide_files)])
+                [([], eco_files), (["--complete-deletion"], eco_files)])
             torch.cuda.empty_cache()
 
         with phase("profile"):
@@ -2222,6 +2651,10 @@ def main() -> int:
             auto = auto_dispatch(device, eco_files, e2e["reference"], wide_files, wide_dir)
             torch.cuda.empty_cache()
 
+        with phase("device server"):
+            devd = device_server(wide_files, auto["wide_reference"], eco_files,
+                                 e2e["reference"], wide_dir)
+
     print(json.dumps({"kernels": [{
         "name": "pair_count",
         "route": "cuda",
@@ -2244,6 +2677,7 @@ def main() -> int:
         "library_ms_600x1000000": wide["library_ms"],
         "launches_pod_streamed": pod["count_launches"],
         "launches_auto": auto["count_launches"],
+        "launches_devd": devd["count_launches"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq",
@@ -2292,6 +2726,7 @@ def main() -> int:
         "bound_ms_8x5000000": pod_group["bound_ms"],
         "bound_by_8x5000000": pod_group["bound_by"],
         "launches_auto": auto["build_launches"],
+        "launches_devd": devd["build_launches"],
         "ms_shipped_29x5000000": auto["group"]["ms"],
         "bound_ms_shipped_29x5000000": auto["group"]["bound_ms"],
         "build_s": _build.BUILD_INFO["seconds"],
@@ -2352,4 +2787,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

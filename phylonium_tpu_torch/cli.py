@@ -15,6 +15,11 @@ it, from the port's calibration store (utils/calibration.py): on a CUDA
 device the dispatch model may send the count to the host, the stream
 gate may stream, and the early query shipper (core/query_ship.py) copies
 each feeding group's 2-bit codes to the card while the files are read.
+``PHYLONIUM_TPU_DEVD=1`` sends the streamed and low-memory routes' builds
+and count to the device server (serve/), spawned on first use; this
+process then makes no CUDA context, and a server error (unreachable,
+another protocol, another device, poisoned, a failed build, a timeout)
+ends the run with exit 1 and no matrix.
 ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
 (both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
 writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
@@ -52,8 +57,9 @@ from phylonium_tpu_torch.io.fasta import read_genome
 from phylonium_tpu_torch.io.phylip import print_matrix
 from phylonium_tpu_torch.native import build as native_build
 from phylonium_tpu_torch.parallel.multihost import world
+from phylonium_tpu_torch.serve.client import DevdError, devd_enabled
 from phylonium_tpu_torch.utils import calibration
-from phylonium_tpu_torch.utils.platform import resolve_device
+from phylonium_tpu_torch.utils.platform import check_device, resolve_device
 from phylonium_tpu_torch.utils.profile import profiled
 
 USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
@@ -441,7 +447,9 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
     where ``early_ship_eligible`` says the streamed device compare is
     worth it, groups of the streamed feeder's size, or of the low-memory
     group predicted from the file sizes; the largest file bounds the
-    reference's length for the groups' int32 cuts."""
+    reference's length for the groups' int32 cuts. Under
+    ``devd_enabled()`` it ships to the device server, and the device is
+    checked without making a CUDA context."""
     if not early_ship_eligible(cfg, file_names):
         return None
     sizes = [os.path.getsize(f) for f in file_names]
@@ -449,9 +457,11 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
     if lowmem:
         est_bp = int(sum(sizes) * 0.98)
         group = group_rows_for(len(file_names), max(1, est_bp // len(file_names)))
+    devd = devd_enabled()
     return QueryShipper(
-        len(file_names), resolve_device(cfg.device), group_rows=group,
-        ref_len_bound=max(sizes), store=calibration.for_device(cfg.device),
+        len(file_names), check_device(cfg.device) if devd else resolve_device(cfg.device),
+        group_rows=group, ref_len_bound=max(sizes),
+        store=calibration.for_device(cfg.device), transport="devd" if devd else "local",
     )
 
 
@@ -468,9 +478,10 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         check_mesh(cfg)
+        devd_enabled()  # refused in a world of several ranks
         if (cfg.count_backend not in ("numpy", "host")
                 or cfg.map_backend == "hybrid"):
-            resolve_device(cfg.device)  # fail before any work
+            check_device(cfg.device)  # fail before any work
     except ConfigError as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
@@ -552,7 +563,7 @@ def _run(cfg: TorchRunConfig, file_names: list[str], lowmem: bool) -> int:
                 else:
                     reference_index = second_index
                     counts = process(queries[reference_index], queries, cfg)
-    except ConfigError as e:
+    except (ConfigError, DevdError) as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
     if cfg.verbose and native_build.BUILD_INFO:

@@ -15,6 +15,11 @@ genome's homologies as the native mapper's raw [H, 5] int64 rows.
   (core/stream.py), which builds the packed rows on ``cfg.device``; the
   host never holds the pileup.
 
+Through the device server (``PHYLONIUM_TPU_DEVD=1``) the feeder sends
+each group to the server, which builds and counts the panel there, and
+this process makes no CUDA context; ``info`` then carries the server's
+count time, ``devd_count_s`` (JAX :263-304).
+
 The JAX pipeline raced the two and cancelled the device leg when its
 queue passed two groups. Here the feeder's queue is bounded at two
 groups (``stream.MAX_BACKLOG``) and ``feed()`` blocks while it is full:
@@ -40,7 +45,8 @@ from phylonium_tpu_torch.core.stream import DeviceRowFeeder, effective_group_row
 from phylonium_tpu_torch.data.sequence import Sequence
 from phylonium_tpu_torch.native import pair_counts_range
 from phylonium_tpu_torch.parallel.multihost import world
-from phylonium_tpu_torch.utils.platform import carrier, resolve_device
+from phylonium_tpu_torch.serve.client import devd_enabled
+from phylonium_tpu_torch.utils.platform import carrier, check_device, resolve_device
 from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
@@ -192,8 +198,9 @@ def map_count_lowmem(
     group = shipper.group_rows if shipper is not None else group_rows_for(n, avg_len)
     feeder = None
     if cfg.count_backend != "host":
-        device = resolve_device(cfg.device)
-        feeder = DeviceRowFeeder(n, ref_len, device, shipper=shipper)
+        devd = devd_enabled()
+        device = check_device(cfg.device) if devd else resolve_device(cfg.device)
+        feeder = DeviceRowFeeder(n, ref_len, device, shipper=shipper, devd=devd)
     elif shipper is not None:
         shipper.cancel()  # the windowed host count builds nothing
 
@@ -238,5 +245,7 @@ def map_count_lowmem(
             info["carrier"] = carrier(feeder.device)
             info["groups"] = feeder.groups
             info["feeder"] = feeder
+            if feeder.devd_count_s is not None:
+                info["devd_count_s"] = feeder.devd_count_s
     cbar.finish()
     return subs, homs, timings, info

@@ -55,12 +55,31 @@ by its dispatch model with the card's numbers (``_auto_prefers_host``,
 than one feeding group may stream. On the CPU 'auto' counts with the
 plain version and streams only under ``PHYLONIUM_TPU_STREAM=force``.
 
+With ``PHYLONIUM_TPU_DEVD=1`` (``serve.client.devd_enabled``; off by
+default) the feeder routes, streamed and low-memory with a device count,
+go through the device server (serve/): the early shipper parks each
+piece's 2-bit codes there, the feeder sends records and overlay, and the
+server builds and counts the panel on its device. Such a run
+(``devd_route``) never touches CUDA in this process: no context, no
+kernel library, no prewarm, no pinned memory (``cuda_initialized`` in the
+run report says so). Its report adds ``devd_count_s`` (the server's count
+time) and ``devd`` (socket, pid, protocol, cache hits, the server's
+launches and memory).
+
 Not carried here, by the no-fallback rule (every decision is a function
 of the run's inputs and the store file): the JAX compare race
-``_race_host``, the retry-then-host wrapper ``_resilient_device_counts``
-and the switch to the host when too little of the panel shipped
-(``shipped_fraction() < 0.5``). The device server waits for the port of
-``serve/``.
+``_race_host``, and with it what only served that race:
+``race_grace_if_warm``, and the drain half of ``finish_ship_accounting``
+(``PHYLONIUM_TPU_SHIP_DRAIN``, ``PHYLONIUM_TPU_SHIP_DRAIN_STALL``: park
+the rest of a panel whose device leg the race abandoned, then a
+synchronous server ``prewarm``), with the server's ``prewarm`` op, the
+feeder's ``prewarm_panel`` and the client's ``inflight`` flag that the
+drain's stall probe read. Here the run's feeder takes every piece
+before its count, so a finished run has parked the whole panel; the
+retry-then-host wrapper ``_resilient_device_counts``; the
+switch to the host when too little of the panel shipped
+(``shipped_fraction() < 0.5``); and the JAX device server route's fall
+back to counting in process: a device-server error fails the run.
 """
 
 from __future__ import annotations
@@ -103,8 +122,9 @@ from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
 from phylonium_tpu_torch.ops.shapes import _PACKED_PAD
 from phylonium_tpu_torch.ops.states import ROW_ALIGN
 from phylonium_tpu_torch.parallel.multihost import world
+from phylonium_tpu_torch.serve.client import devd_enabled, get_client
 from phylonium_tpu_torch.utils import calibration
-from phylonium_tpu_torch.utils.platform import carrier, resolve_device
+from phylonium_tpu_torch.utils.platform import carrier, check_device, resolve_device
 from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
@@ -364,6 +384,14 @@ def _report_mesh(mesh, n: int, length: int, setup_s: float) -> None:
 _DEVICE_TAIL_S = 0.88e-3
 _PACK_BPS = 2.0e9
 
+# The device server's tail as its client sees it: the wait for a warm
+# server's finish (the socket, the count, the counts back), measured by
+# chip_smoke.py's "device server" phase at 116 x 5 Mbp on an "NVIDIA H100
+# 80GB HBM3, 700.00 W" (5.24 and 5.89 ms, median 5.566 ms; the server's
+# count 3.27 and 3.78 ms), where the JAX package's devd branch uses its
+# TPU's _DEVICE_TAIL_S.
+_DEVD_TAIL_S = 5.6e-3
+
 
 def _work_gbp(n: int, ref_len: int) -> float:
     return n * (n - 1) / 2 * ref_len / 1e9
@@ -414,12 +442,16 @@ def _auto_prefers_host(n: int, ref_len: int, cfg: TorchRunConfig) -> bool:
 def _stream_predicts_win(n: int, ref_len: int, cfg: TorchRunConfig):
     """Does a STREAMED device compare beat the host compare?
 
-    The JAX package's model (phylonium_tpu/core/pipeline.py:482-527)
-    without its device-server branch: the 2-bit query panel (N*L/4 bytes)
-    ships hidden under the mapping window (``map_gbps``), so the card pays
-    only the unhidden copy remainder plus ``_DEVICE_TAIL_S``. None when the
-    store holds no copy rate (the caller falls back to the static rule) or
-    an explicit ``PHYLONIUM_TPU_AUTO_DEVICE_GBP`` pins the static rule.
+    The JAX package's model (phylonium_tpu/core/pipeline.py:482-527): the
+    2-bit query panel (N*L/4 bytes) ships hidden under the mapping window
+    (``map_gbps``), so the card pays only the unhidden copy remainder plus
+    ``_DEVICE_TAIL_S``. Through the device server (``devd_enabled``) the
+    server's content cache makes shipping an amortized zero, so the stream
+    wins wherever the host compare takes longer than the server's tail,
+    ``_DEVD_TAIL_S`` (the JAX branch, :499-517, with the card's tail);
+    ``stream_model["devd"]`` records it. None when the store holds no copy
+    rate (the caller falls back to the static rule) or an explicit
+    ``PHYLONIUM_TPU_AUTO_DEVICE_GBP`` pins the static rule.
     """
     if os.environ.get("PHYLONIUM_TPU_AUTO_DEVICE_GBP"):
         return None
@@ -428,6 +460,13 @@ def _stream_predicts_win(n: int, ref_len: int, cfg: TorchRunConfig):
     if link is None:
         return None
     t_host = _work_gbp(n, ref_len) / store.host_compare_gbps()
+    if devd_enabled():
+        LAST_RUN_INFO["stream_model"] = {
+            "link_mb_s": round(link, 2),
+            "t_host_s": round(t_host, 3),
+            "devd": True,
+        }
+        return t_host > _DEVD_TAIL_S
     total_bp = n * ref_len
     ship_s = total_bp / 4 / (link * 1e6)
     overlap_s = total_bp / (store.map_gbps() * 1e9)
@@ -559,6 +598,18 @@ def device_pileup(cfg: TorchRunConfig) -> bool:
     )
 
 
+def devd_route(n: int, ref_len: int, total_bp: int, cfg: TorchRunConfig) -> bool:
+    """Does this run's device work go to the device server? Under
+    ``devd_enabled()``, the runs whose panel the feeder builds: the
+    low-memory path with a device count, or the streamed path (their gates
+    before the index, which they take as native)."""
+    if not devd_enabled():
+        return False
+    if should_lowmem(n, total_bp, cfg):
+        return cfg.count_backend != "host"
+    return should_stream(n, ref_len, cfg)
+
+
 def _prewarm_plan(n: int, ref_len: int, total_bp: int,
                   cfg: TorchRunConfig) -> tuple[bool, bool] | None:
     """What a prewarm runs: (the pair count, the pileup build), or None.
@@ -678,6 +729,8 @@ def prewarm_device(n: int, ref_len: int, total_bp: int,
     device is a thread's own); a card that is missing raises ConfigError
     before any work. The CUDA kernels are not specialized to shapes, so
     the JAX prewarm's shape arguments have no counterpart."""
+    if devd_route(n, ref_len, total_bp, cfg):
+        return None  # the server holds the context: this process makes none
     plan = _prewarm_plan(n, ref_len, total_bp, cfg)
     return None if plan is None else DevicePrewarm(resolve_device(cfg.device), *plan)
 
@@ -746,22 +799,44 @@ def _serial(ref, threshold, subject, queries, cfg, timings, warm, store) -> tupl
 def finish_ship_accounting(feeder: DeviceRowFeeder | None) -> None:
     """Record the early shipper's account of the run (``early_ship``:
     groups shipped, MB, the card's copy rate, the fed groups taken
-    resident and repacked). The JAX package's
-    (phylonium_tpu/core/pipeline.py:1205-1270) without its drain and
-    prewarm, which serve its device server."""
-    account = None if feeder is None else feeder.ship_account()
-    if account is not None:
-        LAST_RUN_INFO["early_ship"] = account
+    resident and repacked, the device server's cache hits). The account
+    half of the JAX package's (phylonium_tpu/core/pipeline.py:1205-1270);
+    its drain half is not carried (module docstring)."""
+    if feeder is None or feeder._shipper is None:
+        return
+    LAST_RUN_INFO["early_ship"] = feeder.ship_account()
+
+
+def _report_devd(feeder: DeviceRowFeeder) -> None:
+    """``devd``, the device server's account of a run it counted: socket,
+    pid, protocol, the client's wait for the count, the pieces its cache
+    held, its launches and memory."""
+    from phylonium_tpu_torch.serve.daemon import PROTOCOL
+
+    reply = feeder.devd_reply
+    shipper = feeder._shipper
+    LAST_RUN_INFO["devd"] = {
+        "socket": get_client(str(feeder.device)).path,
+        "pid": reply.get("pid"),
+        "protocol": PROTOCOL,
+        "device": reply.get("device"),
+        "finish_wait_s": feeder.devd_wait_s,
+        "cache_hits": 0 if shipper is None else shipper.hits,
+        "launches": reply.get("launches"),
+        "memory_reserved": reply.get("memory_reserved"),
+    }
 
 
 def _streamed(ref, threshold, subject, queries, cfg, timings, warm, store) -> tuple:
     """Map in groups while the feeder builds each group's rows on the
     device, from the early shipper's resident codes where it holds them,
-    then count the resident panel."""
+    then count the resident panel; through the device server, the server
+    builds and counts it."""
+    devd = devd_enabled()
     _join(warm)
-    device = resolve_device(cfg.device)
+    device = check_device(cfg.device) if devd else resolve_device(cfg.device)
     feeder = DeviceRowFeeder(len(queries), len(subject), device,
-                             shipper=cfg._query_shipper)
+                             shipper=cfg._query_shipper, devd=devd)
     LAST_RUN_INFO["map_carrier"] = "native"
     LAST_RUN_INFO["map_rounds"] = 0
     with phase(timings, "map+pileup+feed"):
@@ -780,6 +855,9 @@ def _streamed(ref, threshold, subject, queries, cfg, timings, warm, store) -> tu
     bar.finish()
     LAST_RUN_INFO["compare_carrier"] = carrier(device)
     LAST_RUN_INFO["stream_groups"] = feeder.groups
+    if devd:
+        LAST_RUN_INFO["devd_count_s"] = feeder.devd_count_s
+        _report_devd(feeder)
     finish_ship_accounting(feeder)
     return counts
 
@@ -794,7 +872,12 @@ def _lowmem(ref, threshold, queries, cfg, timings, warm, store) -> tuple:
     LAST_RUN_INFO["map_rounds"] = 0
     LAST_RUN_INFO["compare_carrier"] = info.pop("carrier")
     LAST_RUN_INFO["stream_groups"] = info.pop("groups", 0)
-    finish_ship_accounting(info.pop("feeder", None))
+    if "devd_count_s" in info:
+        LAST_RUN_INFO["devd_count_s"] = info.pop("devd_count_s")
+    feeder = info.pop("feeder", None)
+    if feeder is not None and feeder.devd:
+        _report_devd(feeder)
+    finish_ship_accounting(feeder)
     if LAST_RUN_INFO["compare_carrier"] == "host":
         store.record_host_compare(_work_gbp(n, len(ref.subject)), timings["compare"])
     LAST_RUN_INFO["lowmem"] = info
@@ -839,8 +922,11 @@ def process(
     n, total_bp = len(queries), sum(len(q) for q in queries)
     if cfg.count_backend not in ("numpy", "host") or cfg.map_backend == "hybrid":
         # a missing card fails before any work, even where the dispatch
-        # model would count on the host
-        resolve_device(cfg.device)
+        # model would count on the host; the server's route makes no context
+        if devd_route(n, len(subject), total_bp, cfg):
+            check_device(cfg.device)
+        else:
+            resolve_device(cfg.device)
     store = calibration.for_device(cfg.device)
     if cfg.count_backend == "auto" and not cfg.mesh:
         # the estimates this run's dispatch decisions act on
@@ -874,6 +960,7 @@ def process(
         LAST_RUN_INFO["stream_groups"] = 0
 
     LAST_RUN_INFO["timings"] = timings
+    LAST_RUN_INFO["cuda_initialized"] = torch.cuda.is_initialized()
     for prefix, module in _COUNTED.items():
         launches, plain = before[prefix]
         LAST_RUN_INFO[f"{prefix}kernel_launches"] = module.KERNEL_LAUNCHES - launches
@@ -882,6 +969,7 @@ def process(
         phases = "  ".join(f"{k}={v:.3f}s" for k, v in timings.items())
         lowmem = LAST_RUN_INFO.get("lowmem")
         ship = LAST_RUN_INFO.get("early_ship")
+        devd = LAST_RUN_INFO.get("devd")
         print(
             f"phase timings ({ref.backend_name} index, "
             f"{LAST_RUN_INFO['map_carrier']} mapped, "
@@ -896,8 +984,16 @@ def process(
             + (f"; low-mem, {lowmem['group_rows']} rows a group, "
                f"{lowmem['homologies']} homologies" if lowmem else "")
             + (f"; early ship, {ship['groups']} groups, {ship['mb']} MB, "
-               f"{ship['taken']} taken, {ship['repacked']} repacked"
+               f"{ship['taken']} taken, {ship['repacked']} repacked, "
+               f"{ship['cache_hits']} cache hits"
                if ship else "")
+            + (f"; device server {devd['socket']} (pid {devd['pid']}, "
+               f"{devd['device']}), {devd['launches']['build']} build launches, "
+               f"{devd['launches']['build_plain']} build plain calls, "
+               f"{devd['launches']['count']} kernel launches, "
+               f"{devd['launches']['count_plain']} plain calls there, "
+               f"count {LAST_RUN_INFO['devd_count_s']:.3f}s"
+               if devd else "")
             + f"; {cfg.count_backend} counts, "
             f"{LAST_RUN_INFO['compare_carrier']} carried, "
             f"{LAST_RUN_INFO['kernel_launches']} kernel launches, "

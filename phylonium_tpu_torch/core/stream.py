@@ -31,13 +31,25 @@ What the card changes against the JAX design:
 
 On a CPU device the same worker builds with the plain PyTorch version
 into a CPU panel; the tests drive the whole feeder that way.
+
+With ``devd`` (``serve.client.devd_enabled()``, the device server) the
+feeder holds no panel and touches no CUDA: the worker preps each group
+as above and sends its records and overlay (and its 2-bit words, unless
+the shipper parked them in the server: ``take`` gives a
+``query_ship.DevdGroup``) as one ``group`` request, and ``finish()``
+asks the server to count the panel it built (``_drain_devd``, the port
+of the JAX feeder's). Each feeder sends a generation of its own, from a
+process-wide counter, so that the second pass of ``-2`` (the same run id,
+its pieces still resident) starts a fresh panel in the server.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -54,6 +66,10 @@ from phylonium_tpu_torch.utils.progress import ProgressBar
 # groups waiting for the worker, beyond the one it builds; each holds its
 # genomes' bytes until it is built
 MAX_BACKLOG = 2
+
+# each feeder's generation in the device server: never repeats within a
+# process (an object's id can, once the object is gone)
+_GENERATIONS = itertools.count(1)
 
 DEFAULT_GROUP_ROWS = 128
 
@@ -92,18 +108,23 @@ class DeviceRowFeeder:
     only the groups it does not hold (``repacked``); fed groups are cut
     as the shipper cut them. What the shipper's worker hit is raised
     here.
+
+    ``devd``: the device server builds and counts the panel (``rows``
+    must be ``n``); ``devd_count_s`` is then the server's count time,
+    ``devd_wait_s`` this process's wait for ``finish`` and ``devd_reply``
+    the server's reply (its launches, memory, pid).
     """
 
     def __init__(self, n: int, ref_len: int, device: torch.device,
-                 rows: int | None = None, shipper=None):
+                 rows: int | None = None, shipper=None, devd: bool = False):
         rows = n if rows is None else rows
-        if rows < n:
+        if rows < n or (devd and rows != n):
             raise ValueError(f"a panel of {rows} rows cannot hold {n} genomes")
         self.n = n
         self.ref_len = ref_len
         self.device = device
         self.width = packed_width(ref_len)
-        self.groups = 0  # groups the worker built
+        self.groups = 0  # groups the worker built (sent to the server)
         self._shipper = shipper
         self.taken = 0  # groups built from the shipper's resident codes
         self.repacked = 0  # groups the shipper did not hold, packed here
@@ -112,8 +133,23 @@ class DeviceRowFeeder:
         self._error: BaseException | None = None
         self._stopped = False
         self._q: queue.Queue = queue.Queue(maxsize=MAX_BACKLOG)
-        self.panel = torch.empty((rows, self.width), dtype=torch.uint8, device=device)
+        self.devd = devd
+        self.gen = next(_GENERATIONS)
+        self.devd_count_s = None
+        self.devd_wait_s = None
+        self.devd_reply: dict | None = None
+        self.panel = None
         self._stream = None
+        if devd:
+            from phylonium_tpu_torch.core.query_ship import new_run_id
+
+            self.run_id = shipper.run_id if shipper is not None else new_run_id()
+            self._worker = threading.Thread(
+                target=self._drain_devd, daemon=True, name="row-feeder"
+            )
+            self._worker.start()
+            return
+        self.panel = torch.empty((rows, self.width), dtype=torch.uint8, device=device)
         if device.type == "cuda":
             with torch.cuda.device(device):
                 self._stream = torch.cuda.Stream(device)
@@ -190,6 +226,54 @@ class DeviceRowFeeder:
         self._events.append(event)
         self.groups += 1
 
+    def _drain_devd(self) -> None:
+        client = None
+        try:
+            from phylonium_tpu_torch.serve.client import get_client
+
+            client = get_client(str(self.device))
+        except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
+            self._error = e
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                if client is not None and self._error is None and not self._stopped:
+                    with torch.profiler.record_function(GROUP_RANGE):
+                        self._send(client, *item)
+            except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _send(self, client, lo: int, queries: list, homologies: list) -> None:
+        """One group to the server: its records and overlay, and its words
+        unless the shipper parked them there."""
+        from phylonium_tpu_torch.core.query_ship import DevdGroup
+
+        resident = None
+        if self._shipper is not None:
+            resident = self._shipper.take(lo, lo + len(queries))
+            if isinstance(resident, DevdGroup):
+                self.taken += 1
+            else:
+                resident = None
+                self.repacked += 1
+        header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
+                  "rows": len(queries), "n": self.n, "ref_len": self.ref_len}
+        if resident is None:
+            words, *rest = pileup_device.prepare_group(queries, homologies, self.ref_len)
+            arrays = [*rest, words]
+        else:
+            header["gidx"] = resident.gidx
+            _, *arrays = pileup_device.prepare_group(
+                queries, homologies, self.ref_len,
+                resident=(None, resident.bases, resident.seps),
+            )
+        client.request(header, arrays)
+        self.groups += 1
+
     def feed(self, queries: list, homologies: list) -> None:
         """Enqueue the next ``len(queries)`` genomes, in order, as one
         group or, past the int32 limit, several. Raises what the worker
@@ -217,9 +301,9 @@ class DeviceRowFeeder:
         self._q.put(None)
         self._worker.join()
 
-    def built(self) -> torch.Tensor:
-        """Wait for the worker to launch every group; return the panel,
-        with the current stream ordered after its builds."""
+    def _joined(self) -> None:
+        """Stop the worker once it has taken every group; raise what it or
+        the shipper hit, or a short feed."""
         self._stop()
         if self._error is None and self._shipper is not None:
             self._error = self._shipper.error()
@@ -229,6 +313,13 @@ class DeviceRowFeeder:
             raise RuntimeError(
                 f"feeder got {self._rows_done} rows for {self.n} genomes"
             )
+
+    def built(self) -> torch.Tensor:
+        """Wait for the worker to launch every group; return the panel,
+        with the current stream ordered after its builds."""
+        if self.devd:
+            raise RuntimeError("the panel of a device-server feeder lies in the server")
+        self._joined()
         if self._stream is not None:
             current = torch.cuda.current_stream(self.device)
             for event in self._events:
@@ -236,13 +327,27 @@ class DeviceRowFeeder:
         return self.panel
 
     def finish(self) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for every group, then count the panel on its device."""
-        return pair_count.pair_counts_rows(self.built())
+        """Wait for every group, then count the panel on its device (or in
+        the device server, which replies only after its count)."""
+        if not self.devd:
+            return pair_count.pair_counts_rows(self.built())
+        from phylonium_tpu_torch.serve.client import get_client
+
+        self._joined()
+        t0 = time.perf_counter()
+        reply, (subs, homs) = get_client(str(self.device)).request(
+            {"op": "finish", "run": self.run_id, "gen": self.gen, "n": self.n}
+        )
+        self.devd_wait_s = time.perf_counter() - t0
+        self.devd_count_s = reply["seconds"]
+        self.devd_reply = reply
+        return subs.astype(np.int64), homs.astype(np.int64)
 
     def ship_account(self) -> dict | None:
         """The early shipper's account of this feeder's run (None without
-        one): pieces shipped, MB, the card's copy rate, and the fed groups
-        taken resident and repacked here."""
+        one): pieces shipped, MB, the card's copy rate, the fed groups
+        taken resident and repacked here, and the pieces the device
+        server's content cache already held (0 bytes shipped)."""
         shipper = self._shipper
         if shipper is None:
             return None
@@ -253,6 +358,7 @@ class DeviceRowFeeder:
             "mb_s": round(mb_s, 2) if mb_s else None,
             "taken": self.taken,
             "repacked": self.repacked,
+            "cache_hits": shipper.hits,
         }
 
     def cancel(self) -> None:

@@ -57,12 +57,22 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(sources: list[Path]) -> Path:
+def _digest(sources: list[Path]) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libpt_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def _library_path(sources: list[Path]) -> Path:
+    return BUILD_DIR / f"libpt_kernels_{_digest(sources)}.so"
+
+
+def library_digest() -> str:
+    """The hash that names the kernel library of this tree's sources and
+    flags; computed from the files, without nvcc or a device."""
+    return _digest(sorted(CSRC_DIR.glob("*.cu")))
 
 
 def _run(cmd: list[str]) -> str:

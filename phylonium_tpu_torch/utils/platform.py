@@ -15,8 +15,10 @@ import torch
 from phylonium_tpu_torch.config import ConfigError
 
 
-def resolve_device(name: str) -> torch.device:
-    """``"cuda"``, ``"cuda:N"`` or ``"cpu"`` -> a usable torch device."""
+def check_device(name: str) -> torch.device:
+    """``"cuda"``, ``"cuda:N"`` or ``"cpu"`` -> that torch device, checked
+    without creating a CUDA context (a run whose device work goes to the
+    device server checks its device this way); the index stays as given."""
     try:
         device = torch.device(name)
     except (RuntimeError, ValueError) as e:
@@ -39,7 +41,15 @@ def resolve_device(name: str) -> torch.device:
             f"device '{name}' does not exist: torch sees "
             f"{torch.cuda.device_count()} CUDA device(s)"
         )
-    if device.index is None:
+    return device
+
+
+def resolve_device(name: str) -> torch.device:
+    """``"cuda"``, ``"cuda:N"`` or ``"cpu"`` -> a usable torch device; a
+    bare ``cuda`` becomes this thread's current device (which initializes
+    CUDA)."""
+    device = check_device(name)
+    if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
 

@@ -155,7 +155,7 @@ def test_boundary_miss_and_cancel(rng):
     assert np.array_equal(subs, es) and np.array_equal(homs, eh)
     assert (feeder.taken, feeder.repacked) == (1, 2)
     assert feeder.ship_account() == {"groups": 1, "mb": 0.0, "mb_s": None,
-                                     "taken": 1, "repacked": 2}
+                                     "taken": 1, "repacked": 2, "cache_hits": 0}
 
 
 class Injected(RuntimeError):
@@ -300,7 +300,7 @@ def test_shipped_two_pass_equals_the_jax_cli(tmp_path, monkeypatch):
     assert len(passes) == 2
     for info in passes:
         assert info["early_ship"] == {"groups": 3, "mb": 0.0, "mb_s": None,
-                                      "taken": 3, "repacked": 0}
+                                      "taken": 3, "repacked": 0, "cache_hits": 0}
 
 
 def test_run_records_map_rate_and_the_run_report_fields(tmp_path, monkeypatch):
