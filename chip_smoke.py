@@ -4,6 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --devd-turns PAIRS   # phases 1-2, then only the
                                                # server against in-process
+    python3 chip_smoke.py --startup-turns PAIRS --parent DIR
+                                               # phases 1-2, then phase 21's
+                                               # (a), (c), (d) against the
+                                               # parent commit's tree in DIR
 
 Phases, each printed with its wall time; any failure ends the run with a
 non-zero exit and no result line:
@@ -131,8 +135,9 @@ non-zero exit and no result line:
     CLI child process and every daemon on a socket in the phase's
     directory: phase 11's 116 x 5 Mbp panel under
     ``PHYLONIUM_TPU_STREAM=force``, a cold run that spawns the daemon (4
-    groups shipped, 0 hits), then two turns of [a warm run through it (4
-    hits, 0 bytes), an in-process run]; the 29 x 5 Mbp panel with ``-2``
+    groups shipped, 0 hits), then a warm run through it (4 hits, 0
+    bytes), an in-process run and a second warm run (phase 21 times the
+    routes in turns); the 29 x 5 Mbp panel with ``-2``
     (pass 2 built from the pieces pass 1 parked) and under
     ``PHYLONIUM_TPU_LOWMEM=force``; every run byte for byte against the
     JAX package's CLI with host counting, the daemon's build and
@@ -143,7 +148,19 @@ non-zero exit and no result line:
     200 kbp, an injected poison (exit 1, the server named, the daemon
     gone, the next run right) and a daemon SIGKILLed after its first
     ``group`` reply (non-zero exit, no matrix, no hang); no daemon
-    outlives the phase.
+    outlives the phase;
+21. lazy startup: CLI children through the port's entry point (``python
+    -m phylonium_tpu_torch``), each wall split into start, imports,
+    ``cli.main`` and exit: (a) the 29 x 5 Mbp panel with no routing
+    variable on an empty calibration store (the static rule counts it on
+    the host) and (b) with ``--count-backend host``, twice each; (c) the
+    116 x 5 Mbp panel through a warm device server (after the cold run
+    that spawned it), twice; all under ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1``,
+    none importing torch or initializing CUDA; (d) the same panel in
+    process, streamed, twice: one X1 launch a group and one pair-count
+    call, no plain call; every run byte for byte against the JAX
+    package's host count; then ``python -X importtime`` of the CLI, torch
+    and the device modules.
 
 Each phase runs with a calibration store of its own in a temporary
 directory (``PHYLONIUM_TPU_CALIBRATION_FILE``); the phases that drive one
@@ -2114,62 +2131,75 @@ def auto_dispatch(device, eco_files: list[str], eco_reference: bytes,
             "count_launches": sum(r["counts"]["count_launches"] for r in runs.values())}
 
 
-# One CLI run in a child process for the device-server phase: each pass's
-# LAST_RUN_INFO, whether this process initialized CUDA, and the clock at
-# its first line, after its imports, after cli.main and at its end go to
-# the file named by the first argument.
-_DEVD_CHILD = """
+# One CLI run in a child process, through the port's entry point: the
+# module of `python -m phylonium_tpu_torch`, run by runpy after wrapping
+# cli.main and cli.process. Each pass's LAST_RUN_INFO, whether the
+# process imported torch and initialized CUDA, and the clock at its first
+# line, after its imports and around cli.main go to the file named by the
+# first argument; the entry point then ends the process as it does (the
+# port's: the PHYLONIUM_TPU_EXPECT_NO_TORCH guard, then os._exit).
+_CLI_CHILD = """
 import time
 started, t0 = time.time(), time.perf_counter()
-import json, sys
+import json, runpy, sys
+report, *args = sys.argv[1:]
+sys.argv = ["phylonium_tpu_torch", *args]
 import phylonium_tpu_torch.cli as cli
 from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
 passes = []
-process = cli.process
+process, main = cli.process, cli.main
 def recorded(*args, **kwargs):
     counts = process(*args, **kwargs)
     passes.append(json.loads(json.dumps(LAST_RUN_INFO)))
     return counts
-cli.process = recorded
 t1 = time.perf_counter()
-rc = cli.main(sys.argv[2:])
-t2 = time.perf_counter()
-import torch
-with open(sys.argv[1], "w") as f:
-    json.dump({"rc": rc, "passes": passes, "jax": "jax" in sys.modules,
-               "cuda_initialized": torch.cuda.is_initialized(), "started": started,
-               "import_s": t1 - t0, "main_s": t2 - t1, "ended": time.time()}, f)
-sys.exit(rc)
+def timed(argv=None):
+    t2 = time.perf_counter()
+    rc = main(argv)
+    t3 = time.perf_counter()
+    torch = sys.modules.get("torch")
+    with open(report, "w") as f:
+        json.dump({"rc": rc, "passes": passes, "jax": "jax" in sys.modules,
+                   "torch": torch is not None,
+                   "cuda_initialized": torch is not None and torch.cuda.is_initialized(),
+                   "started": started, "import_s": t1 - t0, "main_s": t3 - t2,
+                   "ended": time.time()}, f)
+    return rc
+cli.process, cli.main = recorded, timed
+runpy.run_module("phylonium_tpu_torch", run_name="__main__", alter_sys=True)
 """
 
-_DEVD_ENV = dict.fromkeys((
+_CLI_ENV = dict.fromkeys((
     "PHYLONIUM_TPU_DEVD", "PHYLONIUM_TPU_DEVD_INJECT", "PHYLONIUM_TPU_LOWMEM",
-    "PHYLONIUM_TPU_STREAM_GROUP", "PHYLONIUM_TPU_DEVICE_PILEUP", "PHYLONIUM_TPU_RUN_REPORT",
-    "PHYLONIUM_TPU_SHARDED_EXTEND"))
+    "PHYLONIUM_TPU_STREAM", "PHYLONIUM_TPU_STREAM_GROUP", "PHYLONIUM_TPU_DEVICE_PILEUP",
+    "PHYLONIUM_TPU_RUN_REPORT", "PHYLONIUM_TPU_SHARDED_EXTEND",
+    "PHYLONIUM_TPU_EXPECT_NO_TORCH", "PHYLONIUM_TPU_AUTO_DEVICE_GBP"))
 
 
-def devd_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 300) -> dict:
-    """The port's CLI in a child process (its own process group, killed
-    whole at the timeout): rc, stdout, stderr, wall, each pass's LAST_RUN_INFO,
-    whether the child initialized CUDA, and the wall in pieces: ``start_s``
-    (the interpreter's start, to the child's first line), ``import_s``,
-    ``main_s`` (``cli.main``) and ``exit_s`` (from the child's last line to
-    its exit: the interpreter's and, where it made one, the CUDA context's
-    teardown)."""
+def cli_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 300,
+              repo: str = REPO) -> dict:
+    """The port's CLI of the tree at ``repo`` in a child process, through
+    its entry point (``_CLI_CHILD``; its own process group, killed whole at
+    the timeout): rc, stdout, stderr, wall, each pass's LAST_RUN_INFO,
+    whether the child imported torch and initialized CUDA, and the wall in
+    pieces: ``start_s`` (the interpreter's start, to the child's first
+    line), ``import_s``, ``main_s`` (``cli.main``) and ``exit_s`` (from
+    the end of ``cli.main`` to the child's exit: the entry point's exit
+    and, where it made one, the CUDA context's teardown)."""
     import signal
 
     env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    for key, value in {**_DEVD_ENV, **env_extra}.items():
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    for key, value in {**_CLI_ENV, **env_extra}.items():
         if value is None:
             env.pop(key, None)
         else:
             env[key] = value
-    report = os.path.join(cwd, "devd_child.json")
+    report = os.path.join(cwd, "cli_child.json")
     if os.path.exists(report):
         os.unlink(report)
     t0, spawned = time.perf_counter(), time.time()
-    proc = subprocess.Popen([sys.executable, "-c", _DEVD_CHILD, report, *args], cwd=cwd,
+    proc = subprocess.Popen([sys.executable, "-c", _CLI_CHILD, report, *args], cwd=cwd,
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             start_new_session=True)
     try:
@@ -2180,13 +2210,14 @@ def devd_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 300)
         raise AssertionError(f"the CLI hung: no exit within {timeout} s ({env_extra})")
     wall, exited = time.perf_counter() - t0, time.time()
     result = {"rc": proc.returncode, "out": out, "err": err.decode(errors="replace"),
-              "wall": wall, "passes": [], "cuda_initialized": None}
+              "wall": wall, "passes": [], "torch": None, "cuda_initialized": None}
     if os.path.exists(report):
         with open(report) as f:
             child = json.load(f)
         if child["jax"]:
             raise AssertionError("a CLI child imported jax")
-        result.update(passes=child["passes"], cuda_initialized=child["cuda_initialized"],
+        result.update(passes=child["passes"], torch=child["torch"],
+                      cuda_initialized=child["cuda_initialized"],
                       start_s=child["started"] - spawned, import_s=child["import_s"],
                       main_s=child["main_s"], exit_s=exited - child["ended"])
     return result
@@ -2244,11 +2275,12 @@ def stop_daemon(sock: str) -> int | None:
 
 
 def devd_check(label: str, r: dict, reference: bytes, groups: int, passes: int = 1,
-               device_name: str = "cuda") -> dict:
+               device_name: str = "cuda", torch_free: bool = True) -> dict:
     """One device-server run: byte for byte against ``reference``, the
     server's launches (one build a group, one count call; plain calls on a
     CPU server), every group taken from the shipper, no CUDA in the CLI
-    process. Returns the last pass."""
+    process and, with ``torch_free`` (every tree since the client stopped
+    importing torch), no torch either. Returns the last pass."""
     from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
 
     card = device_name == "cuda"
@@ -2258,9 +2290,10 @@ def devd_check(label: str, r: dict, reference: bytes, groups: int, passes: int =
         raise AssertionError(f"device-server run '{label}' exited {r['rc']}: {r['err'][-2000:]}")
     if r["out"] != reference:
         raise AssertionError(f"device-server run '{label}' differs from the JAX package's")
-    if r["cuda_initialized"] is not False or len(r["passes"]) != passes:
+    if (r["cuda_initialized"] is not False or len(r["passes"]) != passes
+            or (torch_free and r["torch"] is not False)):
         raise AssertionError(f"run '{label}': CUDA initialized {r['cuda_initialized']}, "
-                             f"{len(r['passes'])} passes")
+                             f"torch imported {r['torch']}, {len(r['passes'])} passes")
     for info in r["passes"]:
         server, ship = info.get("devd"), info.get("early_ship")
         if (server is None or server["launches"] != launches or info["cuda_initialized"] or info["kernel_launches"]
@@ -2277,13 +2310,15 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
     Every daemon serves a socket in this phase's directory and is stopped
     in the ``finally``; none may outlive the phase. The 116 x 5 Mbp panel
     streamed under ``PHYLONIUM_TPU_STREAM=force``: a cold run that spawns
-    the daemon, then two turns of [a warm run through it, an in-process
-    run]; the 29 x 5 Mbp panel with ``-2`` and under
+    the daemon, then a warm run through it, an in-process run and a
+    second warm run; the 29 x 5 Mbp panel with ``-2`` and under
     ``PHYLONIUM_TPU_LOWMEM=force``; then the faults, at 6 x 200 kbp: an
     injected poison (the run after it spawns a fresh daemon), and a
     daemon killed after its first ``group`` reply. Every run is a child
-    process, byte for byte against the JAX package's host count; no devd run's CLI initializes
-    CUDA. (``device_name="cpu"`` rehearses the phase without a card.)"""
+    process through the port's entry point, byte for byte against the JAX
+    package's host count; no devd run's CLI imports torch (under
+    ``PHYLONIUM_TPU_EXPECT_NO_TORCH``) or initializes CUDA.
+    (``device_name="cpu"`` rehearses the phase without a card.)"""
     from phylonium_tpu_torch.core.lowmem import group_rows_for
     from phylonium_tpu_torch.core.stream import effective_group_rows
     from phylonium_tpu_torch.ops.states import packed_width
@@ -2294,7 +2329,8 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
     sock = os.path.join(directory, "d.sock")
     base = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
             "PHYLONIUM_TPU_STREAM": "force"}
-    devd_env = {**base, "PHYLONIUM_TPU_DEVD": "1"}
+    # the client imports no torch: under the guard a breach exits 70
+    devd_env = {**base, "PHYLONIUM_TPU_DEVD": "1", "PHYLONIUM_TPU_EXPECT_NO_TORCH": "1"}
     card = device_name == "cuda"
     wide = ["--progress=never", "--device", device_name, *wide_files]
     eco = ["--progress=never", "--device", device_name, *eco_files]
@@ -2303,9 +2339,9 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
     eco_groups = -(-len(eco_files) // effective_group_rows(len(eco_files)))
     runs = {}
     try:
-        for label in ("cold", "warm 1", "in-process 1", "warm 2", "in-process 2"):
+        for label in ("cold", "warm 1", "in-process 1", "warm 2"):
             served = not label.startswith("in-process")
-            r = devd_child(wide, directory, devd_env if served else base)
+            r = cli_child(wide, directory, devd_env if served else base)
             if served:
                 info = devd_check(label, r, wide_reference, groups, device_name=device_name)
                 ship, server = info["early_ship"], info["devd"]
@@ -2336,7 +2372,7 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
                   f"in the CLI {r['cuda_initialized']}; phases {json.dumps(info['timings'])}",
                   flush=True)
         warm = [runs[k] for k in ("warm 1", "warm 2")]
-        local = [runs[k] for k in ("in-process 1", "in-process 2")]
+        local = [runs["in-process 1"]]
         # a panel left reserved by each run (a stream a run) grows the
         # daemon by one panel a run
         panel_bytes = n * packed_width(max(os.path.getsize(f) for f in wide_files))
@@ -2351,7 +2387,7 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
               f"memory grew by {grew} bytes between the warm runs", flush=True)
 
         reference_2 = run_reference_cli(["--progress=never", "-2", *eco_files], directory)
-        r = devd_child(["-2", *eco], directory, devd_env)
+        r = cli_child(["-2", *eco], directory, devd_env)
         devd_check("-2", r, reference_2, eco_groups, passes=2, device_name=device_name)
         print(f"  -2, {len(eco_files)} genomes: byte-identical; both passes built from the pieces "
               f"shipped once ({json.dumps(r['passes'][1]['early_ship'])}); wall "
@@ -2361,7 +2397,7 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
         est_bp = int(sum(os.path.getsize(f) for f in eco_files) * 0.98)
         lowmem_groups = -(-len(eco_files) // group_rows_for(
             len(eco_files), max(1, est_bp // len(eco_files))))
-        r = devd_child(eco, directory, {**devd_env, "PHYLONIUM_TPU_LOWMEM": "force"})
+        r = cli_child(eco, directory, {**devd_env, "PHYLONIUM_TPU_LOWMEM": "force"})
         info = devd_check("low-memory", r, eco_reference, lowmem_groups,
                           device_name=device_name)
         if "lowmem" not in info:
@@ -2378,7 +2414,7 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
         small = ["--progress=never", "--device", device_name, *small_files]
         small_env = {**devd_env, "PHYLONIUM_TPU_STREAM_GROUP": "2"}
         stop_daemon(sock)
-        r = devd_child(small, directory, {**small_env, "PHYLONIUM_TPU_DEVD_INJECT": "poison"})
+        r = cli_child(small, directory, {**small_env, "PHYLONIUM_TPU_DEVD_INJECT": "poison"})
         deadline = time.time() + 30
         while time.time() < deadline and os.path.exists(sock + ".pid"):
             time.sleep(0.05)
@@ -2387,14 +2423,14 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
             raise AssertionError(f"poisoned run: rc {r['rc']}, {r['err'][-2000:]}")
         message = r["err"].strip().splitlines()[-1]
         # the next run spawns a fresh daemon
-        r = devd_child(small, directory, small_env)
+        r = cli_child(small, directory, small_env)
         info = devd_check("after the poison", r, small_reference, 3, device_name=device_name)
         print(f"  poison, {len(small_files)} x 200 kbp: exit 1, no matrix, '{message[:240]}'; "
               f"the daemon exited, and the next run spawned pid {info['devd']['pid']} and "
               f"printed the right matrix; wall {r['wall']:.3f} s", flush=True)
 
         stop_daemon(sock)
-        r = devd_child(small, directory,
+        r = cli_child(small, directory,
                        {**small_env, "PHYLONIUM_TPU_DEVD_INJECT": "kill_after_group"},
                        timeout=180)
         killed = stop_daemon(sock)
@@ -2426,7 +2462,7 @@ def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str
     with no daemon alive (it is stopped first, so no in-process run shares
     the card with one); the pairs alternate which route runs first. Every
     run is a CLI child, byte for byte against ``reference``, with its wall
-    in pieces (``devd_child``) and its phases. Prints each run, then the
+    in pieces (``cli_child``) and its phases. Prints each run, then the
     medians by route and the in-process minus warm differences by pair."""
     from phylonium_tpu_torch.core.stream import effective_group_rows
 
@@ -2441,7 +2477,7 @@ def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str
     card = device_name == "cuda"
 
     def run(label: str, served: bool) -> dict:
-        r = devd_child(args, directory, devd_env if served else base)
+        r = cli_child(args, directory, devd_env if served else base)
         if served:
             info = devd_check(label, r, reference, groups, device_name=device_name)
             hits = 0 if label.startswith("cold") else groups
@@ -2505,6 +2541,231 @@ def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str
     return summary
 
 
+# The lazy-startup runs of phase 21 and ``--startup-turns``, by kind: the
+# CLI's flags, its environment, and whether the CLI process may import
+# torch. (a) 'auto' with no routing variable on an empty calibration
+# store, which the static rule sends to the host; (b) the host count by
+# flag; (c) through a warm device server; (d) in process, streamed.
+_STARTUP = {
+    "a": ([], {}, False),
+    "b": (["--count-backend", "host"], {}, False),
+    "c": ([], {"PHYLONIUM_TPU_DEVD": "1", "PHYLONIUM_TPU_STREAM": "force"}, False),
+    "d": ([], {"PHYLONIUM_TPU_STREAM": "force"}, True),
+}
+
+
+def startup_run(kind: str, label: str, files: list[str], reference: bytes, directory: str,
+                repo: str = REPO, torch_free: bool = True) -> dict:
+    """One lazy-startup run of kind ``kind`` (``_STARTUP``) of the tree at
+    ``repo``, a CLI child through its entry point, on a calibration store
+    of its own that starts empty and with the device server's socket in
+    ``directory``. Byte for byte against ``reference``. With
+    ``torch_free`` (this tree) the runs that stay off the card in the CLI
+    process, (a) to (c), run under ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1`` and
+    must load no torch and initialize no CUDA. (a) and (b) count on the
+    host with no launch; (c) is ``devd_check``'s (a cold run,
+    label ``... cold``, ships every group, a warm one hits every group);
+    (d) loads torch, launches X1 once a group and the pair count once,
+    with no plain call. Returns the run's wall in pieces."""
+    from phylonium_tpu_torch.core.stream import effective_group_rows
+    from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
+
+    flags, env, card = _STARTUP[kind]
+    env = {**env, "PHYLONIUM_TPU_DEVD_SOCK": os.path.join(directory, "d.sock"),
+           "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
+           "PHYLONIUM_TPU_CALIBRATION_FILE": os.path.join(
+               directory, f"store-{label.replace(' ', '-')}-{time.time_ns()}.json")}
+    if torch_free and not card:
+        env["PHYLONIUM_TPU_EXPECT_NO_TORCH"] = "1"
+    r = cli_child(["--progress=never", "--device", "cuda", *flags, *files], directory, env,
+                  repo=repo)
+    groups = -(-len(files) // effective_group_rows(len(files)))
+    if kind == "c":
+        info = devd_check(label, r, reference, groups, torch_free=torch_free)
+        hits = 0 if label.endswith("cold") else groups
+        if info["early_ship"]["cache_hits"] != hits:
+            raise AssertionError(f"run '{label}': early ship {info['early_ship']}")
+    else:
+        if r["rc"] != 0 or r["out"] != reference:
+            raise AssertionError(f"lazy-startup run '{label}' exited {r['rc']} or differs "
+                                 f"from the JAX package's host count: {r['err'][-2000:]}")
+        info = r["passes"][-1]
+        if card:
+            ok = (r["torch"] and r["cuda_initialized"] and "devd" not in info
+                  and info["build_kernel_launches"] == info["stream_groups"] == groups
+                  and info["kernel_launches"] == LAUNCHES_PER_CALL
+                  and not info["plain_calls"] and not info["build_plain_calls"])
+        else:
+            ok = (info["compare_carrier"] == "host" and not info["kernel_launches"]
+                  and not info["plain_calls"] and not info["stream_groups"]
+                  and (kind == "b" or info["dispatch_model"]["link_mb_s"] is None)
+                  and (not torch_free or (r["torch"] is False and r["cuda_initialized"] is False
+                                          and not info["cuda_initialized"])))
+        if not ok:
+            raise AssertionError(f"lazy-startup run '{label}': torch {r['torch']}, CUDA "
+                                 f"{r['cuda_initialized']}, {json.dumps(info)}")
+    row = {"label": label, "kind": kind, "wall": r["wall"],
+           "phases": sum(info["timings"].values()), "torch": r["torch"],
+           "cuda_initialized": r["cuda_initialized"], **{k: r[k] for k in _PIECES}}
+    print(f"  {label:18s} wall {r['wall']:.3f} s = start {r['start_s']:.3f} + import "
+          f"{r['import_s']:.3f} + main {r['main_s']:.3f} (phases {row['phases']:.3f}) + exit "
+          f"{r['exit_s']:.3f}; torch {r['torch']}, CUDA initialized {r['cuda_initialized']}; "
+          f"{info['compare_carrier']} carried, {info['kernel_launches']} count launches, "
+          f"{info['build_kernel_launches']} build launches; phases "
+          f"{json.dumps(info['timings'])}", flush=True)
+    return row
+
+
+def import_profile(repo: str = REPO) -> dict:
+    """``python -X importtime`` of the CLI of the tree at ``repo``, then of
+    torch and of the device modules a run on the card loads: each
+    top-level import's cumulative milliseconds, and those of torch's own
+    direct imports, largest first (eight of each)."""
+    code = ("import phylonium_tpu_torch.cli\nimport torch\n"
+            "import phylonium_tpu_torch.ops.pair_count, phylonium_tpu_torch.ops.pileup_device\n"
+            "import phylonium_tpu_torch.core.hybrid_map\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-c", code], capture_output=True,
+                          text=True, cwd=repo, env=env, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"importtime exited {proc.returncode}: {proc.stderr[-2000:]}")
+    rows = []  # (level, name, cumulative ms), in the order printed
+    for line in proc.stderr.splitlines():
+        if not line.startswith("import time:") or "cumulative" in line:
+            continue
+        _, cumulative, name = line[len("import time:"):].split("|")
+        level = (len(name) - len(name.lstrip(" ")) - 1) // 2
+        rows.append((level, name.strip(), int(cumulative) / 1e3))
+    top = sorted(((n, ms) for level, n, ms in rows if level == 0), key=lambda x: -x[1])
+    where = next(k for k, (_, n, _) in enumerate(rows) if n == "torch")
+    children = []
+    for level, n, ms in reversed(rows[:where]):
+        if level <= rows[where][0]:
+            break
+        if level == rows[where][0] + 1:
+            children.append((n, ms))
+    children.sort(key=lambda x: -x[1])
+    return {"top_ms": dict(top[:8]), "torch_ms": rows[where][2],
+            "torch_level": rows[where][0], "torch_children_ms": dict(children[:8])}
+
+
+def _medians(rows: list[dict]) -> dict:
+    keys = ("wall", *_PIECES, "phases")
+    return {k: statistics.median(r[k] for r in rows) for k in keys}
+
+
+def lazy_startup(eco_files: list[str], eco_reference: bytes, wide_files: list[str],
+                 wide_reference: bytes, tmp: str, turns: int = 2) -> dict:
+    """Phase 21: runs that never reach the card import no torch. ``turns``
+    runs each of (a) and (b) at 29 x 5 Mbp, then at 116 x 5 Mbp a cold
+    device-server run and ``turns`` runs of (c) through the daemon it
+    filled, then, with no daemon alive, ``turns`` runs of (d)
+    (``startup_run``); every daemon is stopped by its pidfile. Then the
+    imports' split (``import_profile``). Prints each run's wall in pieces
+    and the medians by kind."""
+    directory = os.path.join(tmp, "startup")
+    os.makedirs(directory, exist_ok=True)
+    sock = os.path.join(directory, "d.sock")
+    rows = []
+    try:
+        for t in range(1, turns + 1):
+            rows.append(startup_run("a", f"a {t}", eco_files, eco_reference, directory))
+            rows.append(startup_run("b", f"b {t}", eco_files, eco_reference, directory))
+        stop_daemon(sock)
+        cold = startup_run("c", "c cold", wide_files, wide_reference, directory)
+        for t in range(1, turns + 1):
+            rows.append(startup_run("c", f"c {t}", wide_files, wide_reference, directory))
+        stop_daemon(sock)
+        for t in range(1, turns + 1):
+            rows.append(startup_run("d", f"d {t}", wide_files, wide_reference, directory))
+    finally:
+        stop_daemon(sock)
+        alive = [pid for pid in daemon_pids(sock) if pid_alive(pid)]
+        if alive:
+            raise AssertionError(f"daemons outlived the lazy-startup phase: {alive}")
+    imports = import_profile()
+    summary = {"medians_s": {k: _medians([r for r in rows if r["kind"] == k]) for k in "abcd"},
+               "cold_s": cold, "imports": imports}
+    print(f"  lazy startup: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def prebuild(repo: str) -> None:
+    """Build the native host library and the CUDA kernels of the tree at
+    ``repo`` in a process of their own, so that no timed run builds them."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "from phylonium_tpu_torch.native import build\nbuild.ensure_built()\n"
+         "from phylonium_tpu_torch.ops import _build\n_build.load()\n"],
+        capture_output=True, text=True, cwd=repo, env=env, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the build of {repo} exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+
+
+def startup_turns(pairs: int, parent: str, eco_files: list[str], eco_reference: bytes,
+                  wide_files: list[str], wide_reference: bytes, tmp: str) -> dict:
+    """``--startup-turns``: this tree against the parent commit's tree in
+    ``parent`` (an unpacked copy), ``pairs`` pairs in alternating order.
+    In each pair, each tree runs (a) at 29 x 5 Mbp, a cold device-server
+    run and a warm one (c) at 116 x 5 Mbp, then (d) with its daemon
+    stopped (``startup_run``; the parent's runs may import torch). Prints
+    each run, the medians by tree and kind, the parent minus this tree by
+    pair, and each tree's import split."""
+    trees = {"change": REPO, "parent": os.path.abspath(parent)}
+    prebuild(trees["parent"])
+    rows = []
+    try:
+        for i in range(pairs):
+            order = ("change", "parent") if i % 2 == 0 else ("parent", "change")
+            for name in order:
+                repo, torch_free = trees[name], name == "change"
+                directory = os.path.join(tmp, f"startup-{name}")
+                os.makedirs(directory, exist_ok=True)
+                sock = os.path.join(directory, "d.sock")
+
+                def run(kind, label, files, reference):
+                    row = startup_run(kind, f"{name} {label}", files, reference, directory,
+                                      repo=repo, torch_free=torch_free)
+                    rows.append({**row, "tree": name, "pair": i,
+                                 "kind": "cold" if label.endswith("cold") else kind})
+
+                run("a", f"a {i + 1}", eco_files, eco_reference)
+                stop_daemon(sock)
+                run("c", f"c {i + 1} cold", wide_files, wide_reference)
+                run("c", f"c {i + 1}", wide_files, wide_reference)
+                stop_daemon(sock)
+                run("d", f"d {i + 1}", wide_files, wide_reference)
+    finally:
+        for name in trees:
+            sock = os.path.join(tmp, f"startup-{name}", "d.sock")
+            stop_daemon(sock)
+            alive = [pid for pid in daemon_pids(sock) if pid_alive(pid)]
+            if alive:
+                raise AssertionError(f"daemons outlived the turns: {alive}")
+
+    def pick(tree, kind):
+        return sorted((r for r in rows if r["tree"] == tree and r["kind"] == kind),
+                      key=lambda r: r["pair"])
+
+    kinds = ("a", "cold", "c", "d")
+    summary = {
+        "pairs": pairs,
+        "medians_s": {tree: {k: _medians(pick(tree, k)) for k in kinds} for tree in trees},
+        "parent_minus_change_s": {
+            k: {piece: [round(p[piece] - c[piece], 6)
+                        for p, c in zip(pick("parent", k), pick("change", k))]
+                for piece in ("wall", *_PIECES)}
+            for k in kinds},
+        "imports": {tree: import_profile(repo) for tree, repo in trees.items()},
+    }
+    print(f"  startup turns: {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2515,7 +2776,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="run only phases 1-2 and the warm device server against "
                              "the in-process route at 116 x 5 Mbp, PAIRS pairs in "
                              "alternating order (device_server_turns)")
+    parser.add_argument("--startup-turns", type=int, metavar="PAIRS",
+                        help="run only phases 1-2 and phase 21's runs (a), (c) and (d) "
+                             "of this tree against the tree in --parent, PAIRS pairs in "
+                             "alternating order (startup_turns)")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="an unpacked copy of the parent commit, for --startup-turns")
     args = parser.parse_args(argv)
+    if args.startup_turns and not args.parent:
+        parser.error("--startup-turns needs --parent DIR")
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -2553,6 +2822,20 @@ def main(argv: list[str] | None = None) -> int:
             files = write_fasta(eco29_panel(116, 5_000_000), tmp)
             reference = run_reference_cli(["--progress=never", *files], tmp)
             device_server_turns(args.devd_turns, files, reference, tmp)
+        print(info["nvidia_smi"].splitlines()[0], flush=True)
+        return 0
+
+    if args.startup_turns:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_startup_") as tmp, \
+                phase("startup turns"):
+            for name in ("eco", "wide"):
+                os.makedirs(os.path.join(tmp, name))
+            eco_files = write_fasta(eco29_panel(29, 5_000_000), os.path.join(tmp, "eco"))
+            wide_files = write_fasta(eco29_panel(116, 5_000_000), os.path.join(tmp, "wide"))
+            startup_turns(args.startup_turns, args.parent,
+                          eco_files, run_reference_cli(["--progress=never", *eco_files], tmp),
+                          wide_files, run_reference_cli(["--progress=never", *wide_files], tmp),
+                          tmp)
         print(info["nvidia_smi"].splitlines()[0], flush=True)
         return 0
 
@@ -2654,6 +2937,10 @@ def main(argv: list[str] | None = None) -> int:
         with phase("device server"):
             devd = device_server(wide_files, auto["wide_reference"], eco_files,
                                  e2e["reference"], wide_dir)
+
+        with phase("lazy startup"):
+            startup = lazy_startup(eco_files, e2e["reference"], wide_files,
+                                   auto["wide_reference"], wide_dir)
 
     print(json.dumps({"kernels": [{
         "name": "pair_count",

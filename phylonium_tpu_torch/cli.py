@@ -17,12 +17,23 @@ gate may stream, and the early query shipper (core/query_ship.py) copies
 each feeding group's 2-bit codes to the card while the files are read.
 ``PHYLONIUM_TPU_DEVD=1`` sends the streamed and low-memory routes' builds
 and count to the device server (serve/), spawned on first use; this
-process then makes no CUDA context, and a server error (unreachable,
+process then imports no torch and makes no CUDA context, and a server
+error (unreachable,
 another protocol, another device, poisoned, a failed build, a timeout)
 ends the run with exit 1 and no matrix.
 ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
 (both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
 writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
+
+This module, and every module it imports at the top, loads without torch.
+A run imports torch only where it reaches a device step (a device count,
+a device build, hybrid mapping, ``--profile``, a world of several ranks),
+as the JAX CLI imports jax: a run that counts on the host, or whose device
+work goes to the device server, never does. ``main`` returns only once
+everything it writes is written (the matrix, the run report, the
+``--profile`` trace, the calibration store, checkpoints) and the shipper's
+and the feeder's threads are joined, so that the entry point
+(``__main__.py``) can leave through ``os._exit``.
 
 In a torch.distributed world of several ranks (started by the launcher,
 e.g. with ``parallel.multihost.initialize_distributed``, before ``main``
@@ -59,7 +70,7 @@ from phylonium_tpu_torch.native import build as native_build
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.serve.client import DevdError, devd_enabled
 from phylonium_tpu_torch.utils import calibration
-from phylonium_tpu_torch.utils.platform import check_device, resolve_device
+from phylonium_tpu_torch.utils.platform import check_device
 from phylonium_tpu_torch.utils.profile import profiled
 
 USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
@@ -448,8 +459,8 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
     worth it, groups of the streamed feeder's size, or of the low-memory
     group predicted from the file sizes; the largest file bounds the
     reference's length for the groups' int32 cuts. Under
-    ``devd_enabled()`` it ships to the device server, and the device is
-    checked without making a CUDA context."""
+    ``devd_enabled()`` it ships to the device server; otherwise its
+    worker imports torch and resolves the device on its own thread."""
     if not early_ship_eligible(cfg, file_names):
         return None
     sizes = [os.path.getsize(f) for f in file_names]
@@ -457,11 +468,10 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
     if lowmem:
         est_bp = int(sum(sizes) * 0.98)
         group = group_rows_for(len(file_names), max(1, est_bp // len(file_names)))
-    devd = devd_enabled()
     return QueryShipper(
-        len(file_names), check_device(cfg.device) if devd else resolve_device(cfg.device),
-        group_rows=group, ref_len_bound=max(sizes),
-        store=calibration.for_device(cfg.device), transport="devd" if devd else "local",
+        len(file_names), cfg.device, group_rows=group, ref_len_bound=max(sizes),
+        store=calibration.for_device(cfg.device),
+        transport="devd" if devd_enabled() else "local",
     )
 
 

@@ -17,8 +17,8 @@ genome's homologies as the native mapper's raw [H, 5] int64 rows.
 
 Through the device server (``PHYLONIUM_TPU_DEVD=1``) the feeder sends
 each group to the server, which builds and counts the panel there, and
-this process makes no CUDA context; ``info`` then carries the server's
-count time, ``devd_count_s`` (JAX :263-304).
+this process imports no torch and makes no CUDA context; ``info`` then
+carries the server's count time, ``devd_count_s`` (JAX :263-304).
 
 The JAX pipeline raced the two and cancelled the device leg when its
 queue passed two groups. Here the feeder's queue is bounded at two

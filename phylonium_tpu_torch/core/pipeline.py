@@ -42,8 +42,17 @@ mesh. A single process with several cards counts on its one ``--device``
 same.
 
 Before the index, ``prewarm_device`` starts a thread that pays the
-card's one-time costs (context, kernel library, each kernel's first
-launch) while the host indexes; the run's first device step joins it.
+card's one-time costs (``import torch``, the context, the kernel library,
+each kernel's first launch) while the host indexes; the run's first
+device step joins it.
+
+This module loads without torch, as the JAX package's loads without jax:
+``process`` checks a card with the CUDA driver (``check_device``), and
+the device modules (``ops.pair_count``, ``ops.pileup_device``,
+``core.hybrid_map``, ...) are imported on the branches that launch them,
+after the prewarm's join. A run that counts on the host, by
+``--count-backend host`` or by the dispatch model, or that sends its
+device work to the device server, never imports torch.
 
 Each phase is timed into ``LAST_RUN_INFO["timings"]`` inside a profiler
 range of its name (utils/profile.py), which ``--profile`` traces.
@@ -60,11 +69,11 @@ default) the feeder routes, streamed and low-memory with a device count,
 go through the device server (serve/): the early shipper parks each
 piece's 2-bit codes there, the feeder sends records and overlay, and the
 server builds and counts the panel on its device. Such a run
-(``devd_route``) never touches CUDA in this process: no context, no
-kernel library, no prewarm, no pinned memory (``cuda_initialized`` in the
-run report says so). Its report adds ``devd_count_s`` (the server's count
-time) and ``devd`` (socket, pid, protocol, cache hits, the server's
-launches and memory).
+(``devd_route``) never touches CUDA in this process: no torch, no
+context, no kernel library, no prewarm, no pinned memory
+(``cuda_initialized`` in the run report says so). Its report adds
+``devd_count_s`` (the server's count time) and ``devd`` (socket, pid,
+protocol, cache hits, the server's launches and memory).
 
 Not carried here, by the no-fallback rule (every decision is a function
 of the run's inputs and the store file): the JAX compare race
@@ -90,7 +99,6 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
 from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
@@ -98,7 +106,6 @@ from phylonium_tpu_torch.core.anchors import anchor_homologies
 from phylonium_tpu_torch.core.complete_deletion import complete_delete
 from phylonium_tpu_torch.core.filter import filter_overlaps_max
 from phylonium_tpu_torch.core.homology import Homology
-from phylonium_tpu_torch.core.hybrid_map import hybrid_map_queries
 from phylonium_tpu_torch.core.lowmem import map_count_lowmem, should_lowmem
 from phylonium_tpu_torch.core.map_native import map_batch_native
 from phylonium_tpu_torch.core.pileup import build_pileup
@@ -111,20 +118,17 @@ from phylonium_tpu_torch.core.stream import (
 from phylonium_tpu_torch.data.sequence import Sequence, gc_content
 from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.model.evo import EvoCounts
-from phylonium_tpu_torch.ops import (
-    _build,
-    anchor_extend,
-    anchor_extend_sharded,
-    pair_count,
-    pileup_device,
-)
-from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference
-from phylonium_tpu_torch.ops.shapes import _PACKED_PAD
-from phylonium_tpu_torch.ops.states import ROW_ALIGN
+from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, ROW_ALIGN
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.serve.client import devd_enabled, get_client
 from phylonium_tpu_torch.utils import calibration
-from phylonium_tpu_torch.utils.platform import carrier, check_device, resolve_device
+from phylonium_tpu_torch.utils.platform import (
+    carrier,
+    check_device,
+    device_type,
+    loaded,
+    resolve_device,
+)
 from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
@@ -140,10 +144,20 @@ from phylonium_tpu_torch.utils.progress import ProgressBar
 # ("prewarm", not in the run's launch counts).
 LAST_RUN_INFO: dict = {}
 
-# the wrappers whose launches and plain calls a run reports, by the key
-# prefix of LAST_RUN_INFO
-_COUNTED = {"": pair_count, "extend_": anchor_extend,
-            "shard_": anchor_extend_sharded, "build_": pileup_device}
+# the modules (under phylonium_tpu_torch.ops) of the wrappers whose
+# launches and plain calls a run reports, by the key prefix of
+# LAST_RUN_INFO
+_COUNTED = {"": "pair_count", "extend_": "anchor_extend",
+            "shard_": "anchor_extend_sharded", "build_": "pileup_device"}
+
+
+def _counters(name: str) -> tuple[int, int]:
+    """(launches, plain calls) of the wrapper module ``name``; (0, 0) where
+    the run never imported it (its counts start at 0 when it is)."""
+    module = sys.modules.get(f"phylonium_tpu_torch.ops.{name}")
+    if module is None:
+        return 0, 0
+    return module.KERNEL_LAUNCHES, module.PLAIN_CALLS
 
 
 def _mesh_shape(cfg: TorchRunConfig) -> tuple[int, int]:
@@ -179,9 +193,9 @@ def counts_on_mesh(cfg: TorchRunConfig) -> bool:
 def check_mesh(cfg: TorchRunConfig) -> None:
     """Raise ConfigError when ``--mesh R,C`` spans more than one rank and
     the world does not hold exactly ``R * C`` ranks."""
-    from phylonium_tpu_torch.parallel.mesh import needed_ranks_message
-
     if cfg.mesh and _mesh_device_count(cfg) > 1:
+        from phylonium_tpu_torch.parallel.mesh import needed_ranks_message
+
         shape = _mesh_shape(cfg)
         size, _ = world()
         if shape[0] * shape[1] != size:
@@ -250,6 +264,8 @@ def map_queries(
     LAST_RUN_INFO["map_rounds"] = 0
 
     if map_backend == "hybrid":
+        from phylonium_tpu_torch.core.hybrid_map import hybrid_map_queries
+
         device = resolve_device(cfg.device)
         LAST_RUN_INFO["map_carrier"] = carrier(device)
         stats: dict = {}
@@ -329,6 +345,8 @@ def pair_counts(
 
         LAST_RUN_INFO["compare_carrier"] = "host"
         return pair_counts_host(states)
+    from phylonium_tpu_torch.ops import pair_count
+
     device = resolve_device(cfg.device)
     LAST_RUN_INFO["compare_carrier"] = carrier(device)
     return pair_count.pair_counts(states, device)
@@ -482,7 +500,7 @@ def _stream_predicts_win(n: int, ref_len: int, cfg: TorchRunConfig):
 def _gate_picks_host(n: int, ref_len: int, cfg: TorchRunConfig) -> bool:
     """'auto' counting on a CUDA device that the dispatch model sends to
     the host count. On the CPU 'auto' counts with the plain version."""
-    return (cfg.count_backend == "auto" and _device_type(cfg) == "cuda"
+    return (cfg.count_backend == "auto" and device_type(cfg.device) == "cuda"
             and _auto_prefers_host(n, ref_len, cfg))
 
 
@@ -521,7 +539,7 @@ def should_stream(n: int, ref_len: int, cfg: TorchRunConfig,
         return False
     if env == "force":
         return True
-    if _device_type(cfg) != "cuda":
+    if device_type(cfg.device) != "cuda":
         return False
     # evaluated even where the shipper decides, for the run report
     win = _stream_predicts_win(n, ref_len, cfg)
@@ -567,16 +585,7 @@ def should_stream_mp(cfg: TorchRunConfig, ref: ESAIndex | None, n: int) -> bool:
         return True
     if n <= effective_group_rows(n):
         return False
-    return _device_type(cfg) == "cuda"
-
-
-def _device_type(cfg: TorchRunConfig) -> str | None:
-    """The type of ``cfg.device`` ('cuda', 'cpu', ...), None when it does
-    not parse (``resolve_device`` names that fault where a run needs it)."""
-    try:
-        return torch.device(cfg.device).type
-    except (RuntimeError, ValueError):
-        return None
+    return device_type(cfg.device) == "cuda"
 
 
 def device_pileup(cfg: TorchRunConfig) -> bool:
@@ -623,7 +632,7 @@ def _prewarm_plan(n: int, ref_len: int, total_bp: int,
     ``prewarm_counts`` skips it (phylonium_tpu/core/pipeline.py:828-833).
     """
     count = cfg.count_backend in ("auto", "device", "pallas")
-    if not (count or cfg.map_backend == "hybrid") or _device_type(cfg) != "cuda":
+    if not (count or cfg.map_backend == "hybrid") or device_type(cfg.device) != "cuda":
         return None
     host = _gate_picks_host(n, ref_len, cfg)
     build = count and (
@@ -636,7 +645,7 @@ def _prewarm_plan(n: int, ref_len: int, total_bp: int,
     return count, build
 
 
-def _warm(device: torch.device, count: bool, build: bool) -> dict[str, int]:
+def _warm(device, count: bool, build: bool) -> dict[str, int]:
     """Pay the device's one-time costs: the CUDA context, the kernel
     library's load (a build where none is cached) and each kernel's lazy
     module load at its first launch, by one launch of the pair count and,
@@ -647,6 +656,10 @@ def _warm(device: torch.device, count: bool, build: bool) -> dict[str, int]:
     CPU device the plain versions run instead. Returns the launches by
     kernel.
     """
+    import torch
+
+    from phylonium_tpu_torch.ops import _build, match_matrix, pair_count, pileup_device
+
     cuda = device.type == "cuda"
     panel = torch.full((1, ROW_ALIGN), _PACKED_PAD, dtype=torch.uint8, device=device)
     if cuda:
@@ -656,7 +669,7 @@ def _warm(device: torch.device, count: bool, build: bool) -> dict[str, int]:
         if cuda:
             pair_count._launch(panel, panel, True)
         else:
-            cross_counts_reference(panel, panel)
+            match_matrix.cross_counts_reference(panel, panel)
         launches["pair_count"] = pair_count.LAUNCHES_PER_CALL if cuda else 0
     if build:
         words, intervals, *overlay = (
@@ -676,7 +689,10 @@ class DevicePrewarm:
 
     The port of the JAX package's ``prewarm_counts``
     (phylonium_tpu/core/pipeline.py:812-895) and of the part of its
-    ``prewarm_stream`` that has a CUDA meaning. The thread touches no
+    ``prewarm_stream`` that has a CUDA meaning. As there, everything
+    device-related happens on the thread: the run's first ``import
+    torch``, the device's resolution (``device``: a torch.device, or a
+    name that the thread resolves) and ``_warm``. The thread touches no
     ``torch.distributed`` state. The run's first device step calls
     :meth:`join`, which records ``LAST_RUN_INFO["prewarm"]`` (the thread's
     seconds, the seconds the run waited for it, its launches) and raises
@@ -684,7 +700,7 @@ class DevicePrewarm:
     error, the run would only meet it again, so it is raised at once.
     """
 
-    def __init__(self, device: torch.device, count: bool, build: bool):
+    def __init__(self, device, count: bool, build: bool):
         self.seconds = 0.0
         self.launches: dict[str, int] = {}
         self._error: Exception | None = None
@@ -695,10 +711,10 @@ class DevicePrewarm:
         )
         self._thread.start()
 
-    def _run(self, device: torch.device, count: bool, build: bool) -> None:
+    def _run(self, device, count: bool, build: bool) -> None:
         t0 = time.perf_counter()
         try:
-            self.launches = _warm(device, count, build)
+            self.launches = _warm(resolve_device(device), count, build)
         except Exception as e:  # noqa: BLE001 — raised by join()
             self._error = e
         finally:
@@ -724,15 +740,21 @@ def prewarm_device(n: int, ref_len: int, total_bp: int,
     """Start the prewarm of an ``n``-genome run of ``total_bp`` bases on a
     reference of ``ref_len``, or
     return None (``_prewarm_plan``: no CUDA work; nothing for the CPU or
-    for host counting). The device is resolved here, on the caller's
-    thread, whose current device a rank of a world has set (CUDA's current
-    device is a thread's own); a card that is missing raises ConfigError
-    before any work. The CUDA kernels are not specialized to shapes, so
-    the JAX prewarm's shape arguments have no counterpart."""
+    for host counting). Where this process has already initialized CUDA
+    (a rank of a world, whose launcher set the rank's device: CUDA's
+    current device is a thread's own), the device is resolved here, on the
+    caller's thread; otherwise no thread has set one, and the prewarm's
+    thread resolves the name, importing torch there. The CUDA kernels are
+    not specialized to shapes, so the JAX prewarm's shape arguments have
+    no counterpart."""
     if devd_route(n, ref_len, total_bp, cfg):
         return None  # the server holds the context: this process makes none
     plan = _prewarm_plan(n, ref_len, total_bp, cfg)
-    return None if plan is None else DevicePrewarm(resolve_device(cfg.device), *plan)
+    if plan is None:
+        return None
+    torch = loaded("torch")
+    cuda_up = torch is not None and torch.cuda.is_initialized()
+    return DevicePrewarm(resolve_device(cfg.device) if cuda_up else cfg.device, *plan)
 
 
 def _join(warm: DevicePrewarm | None) -> None:
@@ -765,13 +787,17 @@ def _serial(ref, threshold, subject, queries, cfg, timings, warm, store) -> tupl
         homologies = complete_delete(homologies)
 
     x2 = device_pileup(cfg) and not _gate_picks_host(n, len(subject), cfg)
-    device = resolve_device(cfg.device) if x2 else None
+    device = None
+    if x2:
+        _join(warm)
+        device = resolve_device(cfg.device)
     with phase(timings, "pileup"):
         query_arrays = [q.as_array() for q in queries]
         if device is None:
             states = build_pileup(query_arrays, homologies, len(subject))
         else:
-            _join(warm)
+            from phylonium_tpu_torch.ops import pileup_device
+
             panel = pileup_device.build_pileup_device(
                 query_arrays, homologies, len(subject), device
             )
@@ -788,6 +814,8 @@ def _serial(ref, threshold, subject, queries, cfg, timings, warm, store) -> tupl
         if device is None:
             counts = pair_counts(states, cfg)
         else:
+            from phylonium_tpu_torch.ops import pair_count
+
             LAST_RUN_INFO["compare_carrier"] = carrier(device)
             counts = pair_count.pair_counts_rows(panel)
     bar.finish()
@@ -811,7 +839,7 @@ def _report_devd(feeder: DeviceRowFeeder) -> None:
     """``devd``, the device server's account of a run it counted: socket,
     pid, protocol, the client's wait for the count, the pieces its cache
     held, its launches and memory."""
-    from phylonium_tpu_torch.serve.daemon import PROTOCOL
+    from phylonium_tpu_torch.serve.wire import PROTOCOL
 
     reply = feeder.devd_reply
     shipper = feeder._shipper
@@ -914,19 +942,14 @@ def process(
 ) -> EvoCounts:
     check_mesh(cfg)
     LAST_RUN_INFO.clear()
-    before = {
-        prefix: (module.KERNEL_LAUNCHES, module.PLAIN_CALLS)
-        for prefix, module in _COUNTED.items()
-    }
+    before = {prefix: _counters(name) for prefix, name in _COUNTED.items()}
     timings: dict[str, float] = {}
     n, total_bp = len(queries), sum(len(q) for q in queries)
     if cfg.count_backend not in ("numpy", "host") or cfg.map_backend == "hybrid":
         # a missing card fails before any work, even where the dispatch
-        # model would count on the host; the server's route makes no context
-        if devd_route(n, len(subject), total_bp, cfg):
-            check_device(cfg.device)
-        else:
-            resolve_device(cfg.device)
+        # model would count on the host; the driver's count makes no
+        # context and imports no torch (the device steps resolve it)
+        check_device(cfg.device)
     store = calibration.for_device(cfg.device)
     if cfg.count_backend == "auto" and not cfg.mesh:
         # the estimates this run's dispatch decisions act on
@@ -960,11 +983,12 @@ def process(
         LAST_RUN_INFO["stream_groups"] = 0
 
     LAST_RUN_INFO["timings"] = timings
-    LAST_RUN_INFO["cuda_initialized"] = torch.cuda.is_initialized()
-    for prefix, module in _COUNTED.items():
-        launches, plain = before[prefix]
-        LAST_RUN_INFO[f"{prefix}kernel_launches"] = module.KERNEL_LAUNCHES - launches
-        LAST_RUN_INFO[f"{prefix}plain_calls"] = module.PLAIN_CALLS - plain
+    torch = loaded("torch")
+    LAST_RUN_INFO["cuda_initialized"] = torch is not None and torch.cuda.is_initialized()
+    for prefix, name in _COUNTED.items():
+        (launches, plain), (was_launches, was_plain) = _counters(name), before[prefix]
+        LAST_RUN_INFO[f"{prefix}kernel_launches"] = launches - was_launches
+        LAST_RUN_INFO[f"{prefix}plain_calls"] = plain - was_plain
     if cfg.verbose >= 2:
         phases = "  ".join(f"{k}={v:.3f}s" for k, v in timings.items())
         lowmem = LAST_RUN_INFO.get("lowmem")

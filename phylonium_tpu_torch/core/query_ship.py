@@ -22,8 +22,11 @@ match whenever the bound holds. Raw genomes are packed by the port's
 2-bit packs (``_payload_from_compacted``), so a resident group is bit
 for bit what the feeder would have packed.
 
-The worker copies each group through a pinned buffer on its own CUDA
-stream and records an event that the feeder's stream waits on. CUDA
+The worker resolves the device and copies each group through a pinned
+buffer on its own CUDA stream, recording an event that the feeder's
+stream waits on. It also imports torch, on its own thread (the JAX
+shipper initializes jax there): this module loads without torch, and so
+does a CLI whose run never reaches the card. CUDA
 events time the copy alone, and each group of at least 4 MB folds
 its rate into the calibration store (utils/calibration.py,
 ``link_mb_s``) for the next run's gates. On a CPU device the groups stay
@@ -37,7 +40,8 @@ in ``hits``) and otherwise packs it and sends it (``qgroup``; the server
 replies once its copy's event completed, with the copy's seconds by CUDA
 events, which go to the calibration store). ``take`` then gives a
 :class:`DevdGroup`, the piece's index in the run (``gidx``) with its
-host-side ``bases`` and ``seps``. This process makes no CUDA context.
+host-side ``bases`` and ``seps``. This process imports no torch and
+makes no CUDA context.
 
 What the card changes against the JAX design: a worker error is kept and
 raised by the next :meth:`take` (the feeder raises it from ``finish()``),
@@ -61,12 +65,12 @@ import threading
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from phylonium_tpu_torch.config import ConfigError
-from phylonium_tpu_torch.ops.pileup_device import row_groups
+from phylonium_tpu_torch.ops.pileup_groups import row_groups
 from phylonium_tpu_torch.ops.pileup_prep import _bucket, group_payload
 from phylonium_tpu_torch.utils.calibration import Calibration
+from phylonium_tpu_torch.utils.platform import device_type, resolve_device
 
 
 def early_ship_eligible(cfg, file_names: list[str]) -> bool:
@@ -83,7 +87,6 @@ def early_ship_eligible(cfg, file_names: list[str]) -> bool:
     """
     from phylonium_tpu_torch.core.pipeline import (
         _auto_prefers_host,
-        _device_type,
         _stream_predicts_win,
     )
     from phylonium_tpu_torch.core.stream import effective_group_rows
@@ -104,7 +107,7 @@ def early_ship_eligible(cfg, file_names: list[str]) -> bool:
         return False
     if env == "force":
         return True
-    if _device_type(cfg) != "cuda":
+    if device_type(cfg.device) != "cuda":
         return False
     n = len(file_names)
     if n <= effective_group_rows(n):
@@ -218,6 +221,9 @@ class DevdGroup(NamedTuple):
 class QueryShipper:
     """Ships 2-bit query-code groups to ``device`` as reads complete.
 
+    ``device`` is a device name (or a torch.device); the local worker
+    resolves it, with torch, on its own thread.
+
     ``add(arr)`` / ``add_seq(seq)`` take each genome in final query
     order; every ``group_rows`` genomes (the last group may be shorter)
     the group is cut as the feeder cuts it and queued for the worker,
@@ -231,7 +237,7 @@ class QueryShipper:
     :class:`DevdGroup` references.
     """
 
-    def __init__(self, n: int, device: torch.device, group_rows: int | None = None,
+    def __init__(self, n: int, device, group_rows: int | None = None,
                  ref_len_bound: int = 0, store: Calibration | None = None,
                  transport: str = "local"):
         from phylonium_tpu_torch.core.stream import effective_group_rows
@@ -296,7 +302,13 @@ class QueryShipper:
         if self.transport == "devd":
             self._drain_devd()
             return
-        cuda = self.device.type == "cuda"
+        try:
+            import torch
+
+            device = resolve_device(self.device)
+        except Exception as e:  # noqa: BLE001 — raised by take()
+            self._error = e
+        cuda = self._error is None and device.type == "cuda"
         stream = None
         while True:
             item = self._q.get()
@@ -313,15 +325,15 @@ class QueryShipper:
                 host = torch.from_numpy(packed.view(np.int32))
                 event = None
                 if cuda:
-                    with torch.cuda.device(self.device):
+                    with torch.cuda.device(device):
                         if stream is None:
-                            stream = torch.cuda.Stream(self.device)
+                            stream = torch.cuda.Stream(device)
                         start = torch.cuda.Event(enable_timing=True)
                         event = torch.cuda.Event(enable_timing=True)
                         with torch.cuda.stream(stream):
                             pinned = host.pin_memory()
                             start.record(stream)
-                            words = pinned.to(self.device, non_blocking=True)
+                            words = pinned.to(device, non_blocking=True)
                             event.record(stream)
                     event.synchronize()
                     seconds = start.elapsed_time(event) / 1e3

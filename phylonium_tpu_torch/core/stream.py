@@ -32,6 +32,10 @@ What the card changes against the JAX design:
 On a CPU device the same worker builds with the plain PyTorch version
 into a CPU panel; the tests drive the whole feeder that way.
 
+This module loads without torch: a feeder imports it in its constructor,
+on the local route only, and the device modules (``ops.pileup_device``,
+``ops.pair_count``) where it builds and counts.
+
 With ``devd`` (``serve.client.devd_enabled()``, the device server) the
 feeder holds no panel and touches no CUDA: the worker preps each group
 as above and sends its records and overlay (and its 2-bit words, unless
@@ -52,15 +56,13 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from phylonium_tpu_torch.core.homology import Homology
 from phylonium_tpu_torch.core.map_native import map_batch_native
 from phylonium_tpu_torch.index.esa import ESAIndex
-from phylonium_tpu_torch.ops import pair_count, pileup_device
-from phylonium_tpu_torch.ops.shapes import _PACKED_PAD
-from phylonium_tpu_torch.ops.states import packed_width
-from phylonium_tpu_torch.utils.profile import GROUP_RANGE
+from phylonium_tpu_torch.ops.pileup_groups import prepare_group, row_groups
+from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, packed_width
+from phylonium_tpu_torch.utils.profile import GROUP_RANGE, span
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # groups waiting for the worker, beyond the one it builds; each holds its
@@ -110,12 +112,13 @@ class DeviceRowFeeder:
     here.
 
     ``devd``: the device server builds and counts the panel (``rows``
-    must be ``n``); ``devd_count_s`` is then the server's count time,
+    must be ``n``; ``device`` is then a device name, and no torch is
+    imported); ``devd_count_s`` is then the server's count time,
     ``devd_wait_s`` this process's wait for ``finish`` and ``devd_reply``
     the server's reply (its launches, memory, pid).
     """
 
-    def __init__(self, n: int, ref_len: int, device: torch.device,
+    def __init__(self, n: int, ref_len: int, device,
                  rows: int | None = None, shipper=None, devd: bool = False):
         rows = n if rows is None else rows
         if rows < n or (devd and rows != n):
@@ -149,6 +152,8 @@ class DeviceRowFeeder:
             )
             self._worker.start()
             return
+        import torch
+
         self.panel = torch.empty((rows, self.width), dtype=torch.uint8, device=device)
         if device.type == "cuda":
             with torch.cuda.device(device):
@@ -179,7 +184,7 @@ class DeviceRowFeeder:
                 if item is None:
                     return
                 if self._error is None and not self._stopped:
-                    with torch.profiler.record_function(GROUP_RANGE):
+                    with span(GROUP_RANGE):
                         self._build(*item)
             except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
                 self._error = e
@@ -187,6 +192,10 @@ class DeviceRowFeeder:
                 self._q.task_done()
 
     def _build(self, lo: int, queries: list, homologies: list) -> None:
+        import torch
+
+        from phylonium_tpu_torch.ops import pileup_device
+
         resident = None
         if self._shipper is not None:
             resident = self._shipper.take(lo, lo + len(queries))
@@ -194,7 +203,7 @@ class DeviceRowFeeder:
                 self.repacked += 1
             else:
                 self.taken += 1
-        inputs = pileup_device.prepare_group(
+        inputs = prepare_group(
             queries, homologies, self.ref_len,
             resident=None if resident is None else resident[:3],
         )
@@ -240,7 +249,7 @@ class DeviceRowFeeder:
                 if item is None:
                     return
                 if client is not None and self._error is None and not self._stopped:
-                    with torch.profiler.record_function(GROUP_RANGE):
+                    with span(GROUP_RANGE):
                         self._send(client, *item)
             except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
                 self._error = e
@@ -263,11 +272,11 @@ class DeviceRowFeeder:
         header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
                   "rows": len(queries), "n": self.n, "ref_len": self.ref_len}
         if resident is None:
-            words, *rest = pileup_device.prepare_group(queries, homologies, self.ref_len)
+            words, *rest = prepare_group(queries, homologies, self.ref_len)
             arrays = [*rest, words]
         else:
             header["gidx"] = resident.gidx
-            _, *arrays = pileup_device.prepare_group(
+            _, *arrays = prepare_group(
                 queries, homologies, self.ref_len,
                 resident=(None, resident.bases, resident.seps),
             )
@@ -290,7 +299,7 @@ class DeviceRowFeeder:
         cut_len = self.ref_len
         if self._shipper is not None:
             cut_len = max(cut_len, self._shipper.ref_len_bound)
-        bounds = pileup_device.row_groups(
+        bounds = row_groups(
             [len(q) for q in queries], cut_len, max(len(queries), 1)
         )
         for lo, hi in bounds:
@@ -314,13 +323,15 @@ class DeviceRowFeeder:
                 f"feeder got {self._rows_done} rows for {self.n} genomes"
             )
 
-    def built(self) -> torch.Tensor:
+    def built(self):
         """Wait for the worker to launch every group; return the panel,
         with the current stream ordered after its builds."""
         if self.devd:
             raise RuntimeError("the panel of a device-server feeder lies in the server")
         self._joined()
         if self._stream is not None:
+            import torch
+
             current = torch.cuda.current_stream(self.device)
             for event in self._events:
                 current.wait_event(event)
@@ -330,6 +341,8 @@ class DeviceRowFeeder:
         """Wait for every group, then count the panel on its device (or in
         the device server, which replies only after its count)."""
         if not self.devd:
+            from phylonium_tpu_torch.ops import pair_count
+
             return pair_count.pair_counts_rows(self.built())
         from phylonium_tpu_torch.serve.client import get_client
 

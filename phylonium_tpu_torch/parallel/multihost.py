@@ -21,6 +21,12 @@ never swapped:
 
 Every world has an explicit timeout, so a lost rank fails its peers' next
 collective instead of hanging them.
+
+This module loads without torch: :func:`world` reads the world only where
+``torch.distributed`` is already imported (the JAX package's
+``_is_multiprocess`` idiom). A world of several ranks has joined before
+the CLI runs, so it has loaded torch; a process that never imported it is
+a world of one.
 """
 
 from __future__ import annotations
@@ -32,10 +38,9 @@ import socket
 import sys
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
 from phylonium_tpu_torch.config import ConfigError
+from phylonium_tpu_torch.utils.platform import loaded
 
 DEFAULT_TIMEOUT_S = 600.0
 # the timeout of the world this process joined; subgroups take the same
@@ -62,8 +67,10 @@ def native_stdout_to_stderr():
 
 
 def world() -> tuple[int, int]:
-    """(size, rank) of the torch.distributed world; (1, 0) outside one."""
-    if dist.is_available() and dist.is_initialized():
+    """(size, rank) of the torch.distributed world; (1, 0) outside one,
+    and in a process that has not imported ``torch.distributed``."""
+    dist = loaded("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
 
@@ -75,6 +82,9 @@ def node_info() -> dict:
     ``local_rank`` and ``local_size`` (this rank's place among the ranks
     of its host) and ``gpus`` (each rank's card count).
     """
+    import torch
+    import torch.distributed as dist
+
     if _NODE:
         return _NODE
     size, rank = world()
@@ -131,6 +141,9 @@ def initialize_distributed(
     ``cuda:{local_rank % device_count}``.
     """
     global TIMEOUT
+    import torch
+    import torch.distributed as dist
+
     if dist.is_initialized():
         return
     if backend not in ("nccl", "gloo"):

@@ -6,7 +6,8 @@ a device's CUDA context, the loaded kernel library and a content cache
 of the 2-bit query codes it was sent, and builds each run's pileup rows
 (the pileup-build kernel) and counts its panel (the pair-count kernel)
 there; the CLI's streamed and low-memory feeders talk to it over a unix
-socket, and the CLI process itself never touches CUDA. The JAX server
+socket, and the CLI process itself never imports torch or touches
+CUDA (client.py imports numpy only). The JAX server
 exists because its TPU charges every fresh process a first-execution
 cost; a card's context and kernel load cost a fresh process well under a
 second, hidden under the index by the device prewarm, so the port's

@@ -15,6 +15,9 @@ Every failure raises :class:`DevdError` with the socket's path and the
 daemon's error: an unreachable server, a refused protocol, a wrong
 device, poison, a failed build, a timeout. The run fails with it; no
 caller retries in process or on the host.
+
+Like the JAX client, this module imports numpy only, never torch: the CLI
+process of a device-server run makes no tensor.
 """
 
 from __future__ import annotations
@@ -28,11 +31,10 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from phylonium_tpu_torch.config import ConfigError
-from phylonium_tpu_torch.serve.daemon import PROTOCOL, sock_path
-from phylonium_tpu_torch.serve.wire import recv_msg, send_msg
+from phylonium_tpu_torch.serve.wire import PROTOCOL, recv_msg, send_msg, sock_path
+from phylonium_tpu_torch.utils.platform import parse_device
 
 
 class DevdError(RuntimeError):
@@ -51,7 +53,7 @@ def devd_enabled() -> bool:
     ranks keeps each rank's cell on its own rank: ``=1`` there raises
     ConfigError. The variable holds the choice only until a benchmark
     has timed a first run and a re-run of a panel on each route
-    (ROADMAP.md, item 5).
+    (ROADMAP.md, queue 1, "the device-server switch").
     """
     if os.environ.get("PHYLONIUM_TPU_DEVD", "") != "1":
         return False
@@ -69,7 +71,7 @@ def devd_enabled() -> bool:
 def device_name(device) -> str:
     """The daemon's name for ``device``: a bare ``cuda`` is ``cuda:0``,
     the device a fresh daemon resolves it to."""
-    dev = torch.device(device)
+    dev = parse_device(device)
     if dev.type == "cuda" and dev.index is None:
         return "cuda:0"
     return str(dev)

@@ -97,14 +97,16 @@ import torch
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.ops import _build, pair_count, pileup_device
 from phylonium_tpu_torch.ops.states import packed_width
-from phylonium_tpu_torch.serve.wire import WireError, recv_msg, send_msg
+# PROTOCOL and sock_path live in wire.py, which the CLI's client imports
+# without torch; re-exported here, where they were first defined
+from phylonium_tpu_torch.serve.wire import (  # noqa: F401
+    PROTOCOL,
+    WireError,
+    recv_msg,
+    send_msg,
+    sock_path,
+)
 from phylonium_tpu_torch.utils.platform import resolve_device
-
-# the port's own stamp, bumped on every protocol change, and the hash of
-# the kernel library this tree builds: a daemon from another tree, with
-# other kernels, answers ping with another protocol and is replaced
-PROTOCOL_STAMP = "phyd-torch-1"
-PROTOCOL = f"{PROTOCOL_STAMP}+{_build.library_digest()}"
 
 # CUDA errors after which the context is unusable for the rest of the
 # process: every later op would fail the same way until the idle timeout
@@ -129,16 +131,6 @@ def _is_poison(err: str) -> bool:
 
 def _inject() -> str:
     return os.environ.get("PHYLONIUM_TPU_DEVD_INJECT", "")
-
-
-def sock_path(device: str = "cuda") -> str:
-    """The socket of the daemon for ``device``: ``PHYLONIUM_TPU_DEVD_SOCK``,
-    else ``~/.cache/phylonium_tpu_torch/devd-<device>.sock``."""
-    override = os.environ.get("PHYLONIUM_TPU_DEVD_SOCK")
-    if override:
-        return override
-    name = str(device).replace(":", "-")
-    return os.path.expanduser(f"~/.cache/phylonium_tpu_torch/devd-{name}.sock")
 
 
 class _Pass:

@@ -8,21 +8,46 @@ The header carries ``arrays`` specs as ``[dtype_str, shape]`` pairs so
 the receiver reconstructs views without pickling (no code execution on
 received bytes; a magic check rejects foreign traffic). Big buffers move
 as single ``sendall``/``recv_into`` calls.
+
+Beside the frames, what the client and the daemon agree on before the
+first frame: the protocol they speak (``PROTOCOL``) and the socket of a
+device's daemon (``sock_path``). They live here, in a module without
+torch, so that the CLI's client never imports it.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import socket
 import struct
 
 import numpy as np
+
+from phylonium_tpu_torch.ops import _build
 
 MAGIC = b"PHYD1"
 _MAX_HEADER = 1 << 20
 # single-buffer cap: a 600 x 5 Mbp panel's 2-bit codes are < 1 GB; 8 GB
 # rejects only protocol corruption, not any real workload
 _MAX_BODY = 8 << 30
+
+
+# the port's own stamp, bumped on every protocol change, and the hash of
+# the kernel library this tree builds: a daemon from another tree, with
+# other kernels, answers ping with another protocol and is replaced
+PROTOCOL_STAMP = "phyd-torch-1"
+PROTOCOL = f"{PROTOCOL_STAMP}+{_build.library_digest()}"
+
+
+def sock_path(device: str = "cuda") -> str:
+    """The socket of the daemon for ``device``: ``PHYLONIUM_TPU_DEVD_SOCK``,
+    else ``~/.cache/phylonium_tpu_torch/devd-<device>.sock``."""
+    override = os.environ.get("PHYLONIUM_TPU_DEVD_SOCK")
+    if override:
+        return override
+    name = str(device).replace(":", "-")
+    return os.path.expanduser(f"~/.cache/phylonium_tpu_torch/devd-{name}.sock")
 
 
 class WireError(ConnectionError):

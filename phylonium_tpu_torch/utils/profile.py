@@ -4,7 +4,9 @@ Every phase of a run (``index``, ``map``, ``pileup``, ``compare``,
 ``map+pileup+feed``, ``map+feed``) is timed on the host clock into
 ``LAST_RUN_INFO["timings"]`` and, under the same name, recorded as a
 ``torch.profiler.record_function`` range, which costs next to nothing
-while no profiler runs. ``--profile=DIR`` runs ``torch.profiler`` around
+while no profiler runs. A process that has not imported torch records no
+range: it has no profiler to feed, and a phase never imports torch.
+``--profile=DIR`` (the one place here that imports torch) runs ``torch.profiler`` around
 the pipeline (CPU activity, plus CUDA when the run's device is a card) and
 writes one Chrome trace into DIR. A trace that cannot be started or
 written is a soft error: the run warns, still prints its matrix and exits
@@ -18,20 +20,28 @@ import os
 import sys
 import time
 
-import torch
-
 from phylonium_tpu_torch.config import PROG
+from phylonium_tpu_torch.utils.platform import device_type, loaded
 
 # the range the streamed feeder's worker thread records around each group
 # it preps and builds
 GROUP_RANGE = "pileup group"
 
 
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` where this process has
+    imported torch (``utils.platform.loaded``), else nothing."""
+    torch = loaded("torch")
+    if torch is None:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def phase(timings: dict, name: str):
     """Time the body into ``timings[name]`` (seconds) inside a profiler
-    range of the same name."""
-    with torch.profiler.record_function(name):
+    range of the same name (``span``)."""
+    with span(name):
         t0 = time.perf_counter()
         yield
         timings[name] = time.perf_counter() - t0
@@ -44,8 +54,10 @@ def profiled(cfg):
     if not cfg.profile_dir:
         yield
         return
+    import torch
+
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(cfg.device).type == "cuda" and torch.cuda.is_available():
+    if device_type(cfg.device) == "cuda" and torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     try:
         os.makedirs(cfg.profile_dir, exist_ok=True)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from phylonium_tpu.utils import calibration as jax_calibration
-from phylonium_tpu_torch.utils import calibration
+from phylonium_tpu_torch.utils import calibration, platform
 
 
 @pytest.fixture
@@ -76,24 +76,24 @@ def test_rate_noise_floors(store):
 
 
 def test_cpu_run_is_hermetic(monkeypatch):
-    """Without the override a run on the CPU, or a process that finds no
-    CUDA device, neither reads nor writes the real store."""
+    """Without the override a run on the CPU, or a process whose CUDA
+    driver finds no card, neither reads nor writes the real store."""
     monkeypatch.delenv("PHYLONIUM_TPU_CALIBRATION_FILE", raising=False)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 1)
     for device in ("cpu", torch.device("cpu"), "not a device"):
         cpu = calibration.for_device(device)
         assert cpu.path is None
         assert cpu.load() == {}
         cpu.record("link_mb_s", 99.0)  # no-op
         assert cpu.link_mb_s() is None
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 0)
     assert calibration.for_device("cuda").path is None
 
 
 def test_default_store_is_the_ports_own(monkeypatch, tmp_path):
     monkeypatch.delenv("PHYLONIUM_TPU_CALIBRATION_FILE", raising=False)
     monkeypatch.setenv("HOME", str(tmp_path))
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 1)
     path = calibration.for_device("cuda:0").path
     assert path == os.path.join(
         str(tmp_path), ".cache", "phylonium_tpu_torch", "calibration.json"

@@ -133,11 +133,11 @@ def test_port_cpu_run_is_jax_free(tmp_path):
 
 
 def test_port_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
-    import torch
-
     from phylonium_tpu_torch.cli import main
+    from phylonium_tpu_torch.utils import platform
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the CUDA driver finds no card
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 0)
     files = []
     for name, seq in _genomes(n=2):
         path = tmp_path / f"{name}.fasta"

@@ -21,7 +21,7 @@ import torch
 
 from golden_panel import GOLDEN_CASES, RD_SEED, write_panel
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
-from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops import pileup_device, pileup_groups
 from phylonium_tpu_torch.ops.states import pack_rows
 from pileup_cases import panel, write_fasta_panel
 
@@ -154,7 +154,7 @@ def test_groups_cut_by_the_base_limit_change_no_byte(rng, monkeypatch):
     lengths = [len(q) for q in queries]
     # a limit of about two and a half queries: groups of two
     monkeypatch.setattr(
-        pileup_device, "_MAX_GROUP_BASES", 2 * ref_len + 1 + 5 * max(lengths) // 2
+        pileup_groups, "_MAX_GROUP_BASES", 2 * ref_len + 1 + 5 * max(lengths) // 2
     )
     bounds = pileup_device.row_groups(lengths, ref_len, 128)
     assert [hi - lo for lo, hi in bounds] == [2, 2, 2, 2, 1]
@@ -167,7 +167,7 @@ def test_groups_cut_by_the_base_limit_change_no_byte(rng, monkeypatch):
 def test_row_groups_follow_the_jax_rule():
     # no cut below the limit but the row cap; a greedy cut above it
     assert pileup_device.row_groups([5] * 7, 10, 3) == [(0, 3), (3, 6), (6, 7)]
-    limit = pileup_device._MAX_GROUP_BASES - 2 * 10 - 1
+    limit = pileup_groups._MAX_GROUP_BASES - 2 * 10 - 1
     big = limit // 2 + 1
     assert pileup_device.row_groups([big, big, 3, big], 10, 128) == [(0, 1), (1, 3), (3, 4)]
     assert pileup_device.row_groups([limit], 10, 128) == [(0, 1)]
@@ -180,7 +180,7 @@ def test_a_query_above_the_limit_exits_1(tmp_path, monkeypatch, capsys):
 
     files = write_fasta_panel(tmp_path, 4, 2000, seed=4)
     monkeypatch.setenv("PHYLONIUM_TPU_DEVICE_PILEUP", "1")
-    monkeypatch.setattr(pileup_device, "_MAX_GROUP_BASES", 2 * 2000 + 1 + 1999)
+    monkeypatch.setattr(pileup_groups, "_MAX_GROUP_BASES", 2 * 2000 + 1 + 1999)
     calls = pileup_device.PLAIN_CALLS
     rc, out = _run(main, ["--device", "cpu", *files])
     assert rc == 1 and out == ""

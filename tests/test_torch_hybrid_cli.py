@@ -123,11 +123,11 @@ def test_hybrid_run_whose_extension_fails_exits_nonzero(small_files, tmp_path):
 
 
 def test_hybrid_refuses_cuda_without_a_card(small_files, monkeypatch):
-    import torch
-
     from phylonium_tpu_torch.cli import main
+    from phylonium_tpu_torch.utils import platform
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the CUDA driver finds no card
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 0)
     # host counting needs no device, but hybrid mapping still does
     assert main(["--progress=never", "--map-backend", "hybrid",
                  "--count-backend", "host", *small_files]) == 1

@@ -22,7 +22,8 @@ from phylonium_tpu_torch.ops import pair_count
 from phylonium_tpu_torch.ops.match_matrix import cross_counts_reference, onehot_operands
 from phylonium_tpu_torch.ops.match_table import MATCH_PLANES, MATCH_TABLE, PARTNER_MASK
 from phylonium_tpu_torch.ops.states import ROW_ALIGN, pack_rows, packed_width
-from phylonium_tpu_torch.utils.platform import resolve_device
+from phylonium_tpu_torch.utils import platform
+from phylonium_tpu_torch.utils.platform import check_device, resolve_device
 
 CPU = torch.device("cpu")
 INVALID = 10
@@ -137,6 +138,17 @@ def test_resolve_device_refuses_missing_cuda(monkeypatch):
     assert resolve_device("cpu") == CPU
     with pytest.raises(ConfigError):
         resolve_device("meta")
+    # the check before any work asks the CUDA driver, not torch
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 0)
+    with pytest.raises(ConfigError, match="finds no CUDA device"):
+        check_device("cuda")
+    assert str(check_device("cpu")) == "cpu"
+    with pytest.raises(ConfigError):
+        check_device("meta")
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 2)
+    assert check_device("cuda:1") == ("cuda", 1) and str(check_device("cuda:1")) == "cuda:1"
+    with pytest.raises(ConfigError, match="does not exist"):
+        check_device("cuda:2")
 
 
 def test_cross_counts_refuses_bad_inputs():

@@ -21,7 +21,8 @@ import torch
 from phylonium_tpu_torch.config import ConfigError, TorchRunConfig
 from phylonium_tpu_torch.core import pipeline
 from phylonium_tpu_torch.data.sequence import Sequence
-from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops import match_matrix, pileup_device
+from phylonium_tpu_torch.utils import platform
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -114,16 +115,17 @@ def test_a_prewarm_error_is_raised_at_the_join(env, clean_env):
 
 
 def test_no_card_is_a_config_error_before_the_index(clean_env, monkeypatch):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
     from phylonium_tpu_torch.index import esa
+
+    # the CUDA driver finds no card: the check before any work says so
+    monkeypatch.setattr(platform, "cuda_device_count", lambda: 0)
 
     def no_index(*args, **kwargs):
         raise AssertionError("the index was built")
 
     monkeypatch.setattr(pipeline, "ESAIndex", no_index)
     seqs = _panel()
-    with pytest.raises(ConfigError, match="torch finds no CUDA device"):
+    with pytest.raises(ConfigError, match="finds no CUDA device"):
         pipeline.process(seqs[0], seqs, TorchRunConfig(device="cuda", progress="never"))
     assert "prewarm" not in pipeline.LAST_RUN_INFO
     assert esa.ESAIndex is not no_index
@@ -152,8 +154,8 @@ def test_prewarm_work_stays_out_of_the_counters(env, clean_env):
             return fn(*args, **kwargs)
         return wrapped
 
-    clean_env.setattr(pipeline, "cross_counts_reference",
-                      spy("pair_count", pipeline.cross_counts_reference))
+    clean_env.setattr(match_matrix, "cross_counts_reference",
+                      spy("pair_count", match_matrix.cross_counts_reference))
     clean_env.setattr(pileup_device, "_plain", spy("pileup_build", pileup_device._plain))
     clean_env.setattr(pipeline, "_prewarm_plan", lambda *args: (True, True))
     got = pipeline.process(seqs[0], seqs, cfg)

@@ -33,7 +33,7 @@ from phylonium_tpu_torch.core import query_ship
 from phylonium_tpu_torch.core.query_ship import QueryShipper
 from phylonium_tpu_torch.core.stream import DeviceRowFeeder
 from phylonium_tpu_torch.data.sequence import Sequence
-from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops import pileup_device, pileup_groups
 from phylonium_tpu_torch.ops.pileup_prep import group_payload
 from pileup_cases import panel
 
@@ -109,7 +109,7 @@ def test_a_group_cut_by_row_groups_ships_as_the_feeder_cuts_it(rng, monkeypatch)
     lengths = [len(q) for q in queries]
     # an int32 limit that cuts each 5-genome group in two or three
     limit = 3 * max(lengths)
-    monkeypatch.setattr(pileup_device, "_MAX_GROUP_BASES", limit + 2 * ref_len + 1)
+    monkeypatch.setattr(pileup_groups, "_MAX_GROUP_BASES", limit + 2 * ref_len + 1)
     # the file-size bound of the reference's length: above the real one
     bound = ref_len + 40
     cuts = [(lo + a, lo + b) for lo in (0, 5)

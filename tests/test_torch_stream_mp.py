@@ -47,7 +47,7 @@ from phylonium_tpu_torch.core import pipeline
 from phylonium_tpu_torch.core.anchor_stats import min_anchor_length
 from phylonium_tpu_torch.data.sequence import Sequence, gc_content
 from phylonium_tpu_torch.index.esa import ESAIndex
-from phylonium_tpu_torch.ops import pileup_device
+from phylonium_tpu_torch.ops import pileup_device, pileup_groups
 from phylonium_tpu_torch.parallel.distributed import counts_from_cell
 from phylonium_tpu_torch.parallel.mesh import Mesh
 from phylonium_tpu_torch.parallel.stream_mp import (
@@ -141,7 +141,7 @@ def test_a_group_past_the_int32_limit_is_cut(port_index, monkeypatch):
     n, ranks, rank = 10, 2, 0
     _, whole = _cell(port_index, n, ranks, rank, 128)
     # room for two genomes a build: the one mapping group of 5 becomes 3
-    monkeypatch.setattr(pileup_device, "_MAX_GROUP_BASES", 2 * LENGTH + 1 + 2 * LENGTH + 10)
+    monkeypatch.setattr(pileup_groups, "_MAX_GROUP_BASES", 2 * LENGTH + 1 + 2 * LENGTH + 10)
     calls = pileup_device.PLAIN_CALLS
     feeder, cut = _cell(port_index, n, ranks, rank, 128)
     assert feeder.groups == 3 and pileup_device.PLAIN_CALLS - calls == 3
