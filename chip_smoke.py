@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --devd-turns PAIRS   # phases 1-2, then only the
-                                               # server against in-process
+                                               # default route (the device
+                                               # server) against in-process
     python3 chip_smoke.py --startup-turns PAIRS --parent DIR
                                                # phases 1-2, then phase 21's
                                                # (a), (c), (d) against the
@@ -67,8 +68,8 @@ non-zero exit and no result line:
     plain and with ``--complete-deletion``, each byte for byte against the
     JAX package's CLI with host counting and the same flags, one build
     launch a group; then the host pileup and X2 timed in turns (host, X2,
-    X2, host) in this process at 29 x 5 Mbp, plain and with
-    ``--complete-deletion``, with each run's phase timings;
+    X2, host) in this process at 29 x 5 Mbp, with each run's phase
+    timings;
 13. ``--profile``: the 29 x 5 Mbp panel with ``--profile=DIR`` and X2 on
     the card; the trace must hold the phase ranges and one device event
     for each pair-count and pileup-build launch, the prewarm's included;
@@ -123,8 +124,9 @@ non-zero exit and no result line:
     by the early query shipper, its words on the card equal to the host
     pack and its pileup-build kernel's panel equal, byte for byte, to the
     unshipped one, with the kernel's time and the feeder's host prep with
-    and without the resident codes; then the port's CLI with no routing
-    variable on one calibration store that starts empty: 3 x 100 kbp,
+    and without the resident codes; then the port's CLI in this process
+    (``PHYLONIUM_TPU_DEVD=0``) with no other routing variable on one
+    calibration store that starts empty: 3 x 100 kbp,
     29 x 5 Mbp, 116 x 5 Mbp and 600 x 1 Mbp by the static rule, then
     29 x 5 Mbp, 116 x 5 Mbp and 3 x 100 kbp by the measured models, each
     byte for byte against the JAX package's CLI with host counting, with
@@ -135,10 +137,10 @@ non-zero exit and no result line:
     CLI child process and every daemon on a socket in the phase's
     directory: phase 11's 116 x 5 Mbp panel under
     ``PHYLONIUM_TPU_STREAM=force``, a cold run that spawns the daemon (4
-    groups shipped, 0 hits), then a warm run through it (4 hits, 0
-    bytes), an in-process run and a second warm run (phase 21 times the
-    routes in turns); the 29 x 5 Mbp panel with ``-2``
-    (pass 2 built from the pieces pass 1 parked) and under
+    groups shipped, 0 hits), then two warm runs through it (4 hits, 0
+    bytes; phase 22 and ``--devd-turns`` hold the routes against each
+    other); the 29 x 5 Mbp panel with ``-2`` (pass 2 built from the
+    pieces pass 1 parked) and under
     ``PHYLONIUM_TPU_LOWMEM=force``; every run byte for byte against the
     JAX package's CLI with host counting, the daemon's build and
     pair-count launches reported, and no devd run's CLI process
@@ -153,19 +155,36 @@ non-zero exit and no result line:
     -m phylonium_tpu_torch``), each wall split into start, imports,
     ``cli.main`` and exit: (a) the 29 x 5 Mbp panel with no routing
     variable on an empty calibration store (the static rule counts it on
-    the host) and (b) with ``--count-backend host``, twice each; (c) the
-    116 x 5 Mbp panel through a warm device server (after the cold run
-    that spawned it), twice; all under ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1``,
-    none importing torch or initializing CUDA; (d) the same panel in
-    process, streamed, twice: one X1 launch a group and one pair-count
-    call, no plain call; every run byte for byte against the JAX
-    package's host count; then ``python -X importtime`` of the CLI, torch
-    and the device modules.
+    the host) and (b) with ``--count-backend host``; (c) the 116 x 5 Mbp
+    panel through a warm device server (after the cold run that spawned
+    it); all under ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1``, none importing
+    torch or initializing CUDA; (d) the same panel in process
+    (``PHYLONIUM_TPU_DEVD=0``), streamed: one X1 launch a
+    group and one pair-count call, no plain call; every run byte for byte
+    against the JAX package's host count; then ``python -X importtime`` of
+    the CLI, torch and the device modules;
+22. the default route: an in-process run of the 29 x 5 Mbp panel fills a
+    calibration store with a copy rate; then the 116 x 5 Mbp panel with no
+    routing variable on that store, cold (the run spawns the daemon on a
+    socket in the phase's directory) and warm (it reuses it), both under
+    ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1``: the server's branch of the stream
+    model decides, the daemon launches X1 once a group and the pair count
+    once, the CLI makes no CUDA context; then, the daemon stopped, the
+    panel with ``PHYLONIUM_TPU_DEVD=0`` in process; each byte for byte
+    against the JAX package's host count;
+23. no daemon left: no live pidfile and no live daemon in a socket's log
+    under the script's directories, and none on the card's default socket
+    that was not there when the script started.
 
 Each phase runs with a calibration store of its own in a temporary
 directory (``PHYLONIUM_TPU_CALIBRATION_FILE``); the phases that drive one
 route pin it (``--count-backend device``, ``PHYLONIUM_TPU_STREAM``), since
-'auto' routes by the dispatch model.
+'auto' routes by the dispatch model. A single-process run on the card
+sends its streamed and low-memory work to the device server by default,
+so every run meant in process pins ``PHYLONIUM_TPU_DEVD=0``
+(``IN_PROCESS``: the runs in this process, ``run_child``'s children, the
+in-process sides of phases 20 to 22 and of the turns), and every run that
+may take the server has its socket in a directory of the script's own.
 
 The last lines are the kernel table as JSON (per kernel: launches on its
 main path, the largest error, the kernel's, the plain version's and the
@@ -720,11 +739,17 @@ def write_fasta(panel, directory: str) -> list[str]:
     return files
 
 
+# The in-process route, pinned: a single-process run on a card sends its
+# streamed and low-memory work to the device server by default
+IN_PROCESS = {"PHYLONIUM_TPU_DEVD": "0"}
+
+
 def run_port_cli(args: list[str]) -> tuple[int, str]:
+    """The port's CLI in this process, on the in-process route."""
     from phylonium_tpu_torch.cli import main as port_main
 
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with env_set(**IN_PROCESS), contextlib.redirect_stdout(buf):
         rc = port_main(args)
     return rc, buf.getvalue()
 
@@ -1272,12 +1297,14 @@ print(json.dumps({"rc": os.waitstatus_to_exitcode(status),
 
 
 def run_child(args: list[str], cwd: str, env_extra: dict, timeout: float = 600) -> dict:
-    """The port's CLI in a child process; returns its stdout, its
-    LAST_RUN_INFO, its wall and its peak RSS (``os.wait4``)."""
+    """The port's CLI in a child process, on the in-process route; returns
+    its stdout, its LAST_RUN_INFO, its wall and its peak RSS
+    (``os.wait4``)."""
     import signal
 
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(IN_PROCESS)
     env.update(env_extra)
     spec = {"argv": [sys.executable, "-c", _CHILD, *args], "cwd": cwd,
             "out": os.path.join(cwd, "child.out"),
@@ -2305,13 +2332,14 @@ def devd_check(label: str, r: dict, reference: bytes, groups: int, passes: int =
 
 def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[str],
                   eco_reference: bytes, tmp: str, device_name: str = "cuda") -> dict:
-    """Phase 20: the device server (serve/) against the in-process route.
+    """Phase 20: the device server (serve/) under ``PHYLONIUM_TPU_DEVD=1``.
 
     Every daemon serves a socket in this phase's directory and is stopped
     in the ``finally``; none may outlive the phase. The 116 x 5 Mbp panel
     streamed under ``PHYLONIUM_TPU_STREAM=force``: a cold run that spawns
-    the daemon, then a warm run through it, an in-process run and a
-    second warm run; the 29 x 5 Mbp panel with ``-2`` and under
+    the daemon, then two warm runs through it (phase 22 and
+    ``--devd-turns`` hold the server against the in-process route); the
+    29 x 5 Mbp panel with ``-2`` and under
     ``PHYLONIUM_TPU_LOWMEM=force``; then the faults, at 6 x 200 kbp: an
     injected poison (the run after it spawns a fresh daemon), and a
     daemon killed after its first ``group`` reply. Every run is a child
@@ -2327,10 +2355,10 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
     directory = os.path.join(tmp, "devd")
     os.makedirs(directory, exist_ok=True)
     sock = os.path.join(directory, "d.sock")
-    base = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
-            "PHYLONIUM_TPU_STREAM": "force"}
     # the client imports no torch: under the guard a breach exits 70
-    devd_env = {**base, "PHYLONIUM_TPU_DEVD": "1", "PHYLONIUM_TPU_EXPECT_NO_TORCH": "1"}
+    devd_env = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
+                "PHYLONIUM_TPU_STREAM": "force", "PHYLONIUM_TPU_DEVD": "1",
+                "PHYLONIUM_TPU_EXPECT_NO_TORCH": "1"}
     card = device_name == "cuda"
     wide = ["--progress=never", "--device", device_name, *wide_files]
     eco = ["--progress=never", "--device", device_name, *eco_files]
@@ -2339,31 +2367,21 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
     eco_groups = -(-len(eco_files) // effective_group_rows(len(eco_files)))
     runs = {}
     try:
-        for label in ("cold", "warm 1", "in-process 1", "warm 2"):
-            served = not label.startswith("in-process")
-            r = cli_child(wide, directory, devd_env if served else base)
-            if served:
-                info = devd_check(label, r, wide_reference, groups, device_name=device_name)
-                ship, server = info["early_ship"], info["devd"]
-                hits = 0 if label == "cold" else groups
-                if ship["cache_hits"] != hits or (ship["mb"] == 0.0) != bool(hits):
-                    raise AssertionError(f"run '{label}': early ship {ship}")
-                if server["socket"] != sock or server["protocol"] != PROTOCOL:
-                    raise AssertionError(f"run '{label}': server {server}")
-            else:
-                if r["rc"] != 0 or r["out"] != wide_reference:
-                    raise AssertionError(f"in-process run '{label}': {r['err'][-2000:]}")
-                info = r["passes"][-1]
-                built = info["build_kernel_launches" if card else "build_plain_calls"]
-                if info.get("devd") or built != groups or info["cuda_initialized"] != card:
-                    raise AssertionError(f"in-process run '{label}': {json.dumps(info)}")
-                ship, server = info["early_ship"], None
+        for label in ("cold", "warm 1", "warm 2"):
+            r = cli_child(wide, directory, devd_env)
+            info = devd_check(label, r, wide_reference, groups, device_name=device_name)
+            ship, server = info["early_ship"], info["devd"]
+            hits = 0 if label == "cold" else groups
+            if ship["cache_hits"] != hits or (ship["mb"] == 0.0) != bool(hits):
+                raise AssertionError(f"run '{label}': early ship {ship}")
+            if server["socket"] != sock or server["protocol"] != PROTOCOL:
+                raise AssertionError(f"run '{label}': server {server}")
             runs[label] = {"wall": r["wall"], "timings": info["timings"],
-                           "devd_count_s": info.get("devd_count_s"),
-                           "finish_wait_s": server and server["finish_wait_s"],
+                           "devd_count_s": info["devd_count_s"],
+                           "finish_wait_s": server["finish_wait_s"],
                            "cache_hits": ship["cache_hits"], "mb": ship["mb"],
-                           "launches": server and server["launches"],
-                           "memory_reserved": server and server["memory_reserved"]}
+                           "launches": server["launches"],
+                           "memory_reserved": server["memory_reserved"]}
             print(f"  {label:13s} {n} genomes: byte-identical to the JAX package's host count; "
                   f"wall {r['wall']:.3f} s, devd_count_s {runs[label]['devd_count_s']}, finish "
                   f"wait {runs[label]['finish_wait_s']}, {ship['cache_hits']} cache hits, "
@@ -2372,7 +2390,6 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
                   f"in the CLI {r['cuda_initialized']}; phases {json.dumps(info['timings'])}",
                   flush=True)
         warm = [runs[k] for k in ("warm 1", "warm 2")]
-        local = [runs["in-process 1"]]
         # a panel left reserved by each run (a stream a run) grows the
         # daemon by one panel a run
         panel_bytes = n * packed_width(max(os.path.getsize(f) for f in wide_files))
@@ -2382,9 +2399,9 @@ def device_server(wide_files: list[str], wide_reference: bytes, eco_files: list[
                                  f"two warm runs of one panel ({panel_bytes} bytes a panel)")
         tail = statistics.median(w["finish_wait_s"] for w in warm)
         print(f"  devd tail (the client's wait for a warm server's finish, median of 2): "
-              f"{tail:.6f} s; warm walls {[round(w['wall'], 3) for w in warm]} s against "
-              f"in-process {[round(w['wall'], 3) for w in local]} s; the daemon's reserved "
-              f"memory grew by {grew} bytes between the warm runs", flush=True)
+              f"{tail:.6f} s; warm walls {[round(w['wall'], 3) for w in warm]} s; the "
+              f"daemon's reserved memory grew by {grew} bytes between the warm runs",
+              flush=True)
 
         reference_2 = run_reference_cli(["--progress=never", "-2", *eco_files], directory)
         r = cli_child(["-2", *eco], directory, devd_env)
@@ -2455,29 +2472,40 @@ _PIECES = ("start_s", "import_s", "main_s", "exit_s")
 
 def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str,
                         device_name: str = "cuda") -> dict:
-    """The warm device server against the in-process route at the panel of
-    ``files`` (``--devd-turns``; 116 x 5 Mbp on the card), ``pairs`` pairs
-    under ``PHYLONIUM_TPU_STREAM=force``. Each pair is a warm run through a
-    daemon that one cold run just spawned and filled, and an in-process run
-    with no daemon alive (it is stopped first, so no in-process run shares
-    the card with one); the pairs alternate which route runs first. Every
-    run is a CLI child, byte for byte against ``reference``, with its wall
-    in pieces (``cli_child``) and its phases. Prints each run, then the
-    medians by route and the in-process minus warm differences by pair."""
+    """The default route against the in-process route at the panel of
+    ``files`` (``--devd-turns``; 116 x 5 Mbp on the card), ``pairs`` pairs,
+    with no routing variable but ``PHYLONIUM_TPU_DEVD=0`` on the
+    in-process side: both stream by the gate, on one calibration store
+    that an untimed in-process run fills first (``fill_store``). Each pair
+    is a warm run through a daemon that one cold default run just spawned
+    and filled, and an in-process run with no daemon alive (it is stopped
+    first, so no in-process run shares the card with one); the pairs
+    alternate which route runs first. Every run is a CLI child, byte
+    for byte against ``reference``, with its wall in pieces (``cli_child``)
+    and its phases; the default runs under
+    ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1``. Prints each run, then the medians
+    by route and the in-process minus warm differences by pair."""
     from phylonium_tpu_torch.core.stream import effective_group_rows
 
     directory = os.path.join(tmp, "turns")
     os.makedirs(directory, exist_ok=True)
     sock = os.path.join(directory, "d.sock")
     base = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
-            "PHYLONIUM_TPU_STREAM": "force"}
-    devd_env = {**base, "PHYLONIUM_TPU_DEVD": "1"}
+            "PHYLONIUM_TPU_CALIBRATION_FILE": os.path.join(directory, "calibration.json")}
+    card = device_name == "cuda"
+    devd_env = {**base, "PHYLONIUM_TPU_EXPECT_NO_TORCH": "1"}
+    if card:
+        fill_store(files, directory, base)
+    else:
+        # a rehearsal on the CPU, where the stream gate and the server's
+        # default are off: both forced
+        base["PHYLONIUM_TPU_STREAM"] = devd_env["PHYLONIUM_TPU_STREAM"] = "force"
+        devd_env["PHYLONIUM_TPU_DEVD"] = "1"
     args = ["--progress=never", "--device", device_name, *files]
     groups = -(-len(files) // effective_group_rows(len(files)))
-    card = device_name == "cuda"
 
     def run(label: str, served: bool) -> dict:
-        r = cli_child(args, directory, devd_env if served else base)
+        r = cli_child(args, directory, devd_env if served else {**base, **IN_PROCESS})
         if served:
             info = devd_check(label, r, reference, groups, device_name=device_name)
             hits = 0 if label.startswith("cold") else groups
@@ -2487,7 +2515,8 @@ def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str
             if r["rc"] != 0 or r["out"] != reference:
                 raise AssertionError(f"in-process run '{label}': {r['err'][-2000:]}")
             info = r["passes"][-1]
-            if info.get("devd") or info["cuda_initialized"] != card:
+            if (info.get("devd") or info["cuda_initialized"] != card
+                    or info["stream_groups"] != groups):
                 raise AssertionError(f"in-process run '{label}': {json.dumps(info)}")
         row = {"label": label, "wall": r["wall"], "phases": sum(info["timings"].values()),
                **{k: r[k] for k in _PIECES}}
@@ -2545,13 +2574,23 @@ def device_server_turns(pairs: int, files: list[str], reference: bytes, tmp: str
 # CLI's flags, its environment, and whether the CLI process may import
 # torch. (a) 'auto' with no routing variable on an empty calibration
 # store, which the static rule sends to the host; (b) the host count by
-# flag; (c) through a warm device server; (d) in process, streamed.
+# flag; (c) through a warm device server; (d) in process, streamed. Each
+# pins its route, so that a tree whose default differs takes the same one.
 _STARTUP = {
     "a": ([], {}, False),
     "b": (["--count-backend", "host"], {}, False),
     "c": ([], {"PHYLONIUM_TPU_DEVD": "1", "PHYLONIUM_TPU_STREAM": "force"}, False),
-    "d": ([], {"PHYLONIUM_TPU_STREAM": "force"}, True),
+    "d": ([], {**IN_PROCESS, "PHYLONIUM_TPU_STREAM": "force"}, True),
 }
+
+
+def route_of(info: dict) -> str:
+    """The route a run took, from its last pass's LAST_RUN_INFO."""
+    if info.get("devd"):
+        return "device server"
+    if info["compare_carrier"] == "host":
+        return "host"
+    return "in process, streamed" if info["stream_groups"] else "in process, serial"
 
 
 def startup_run(kind: str, label: str, files: list[str], reference: bytes, directory: str,
@@ -2604,12 +2643,13 @@ def startup_run(kind: str, label: str, files: list[str], reference: bytes, direc
         if not ok:
             raise AssertionError(f"lazy-startup run '{label}': torch {r['torch']}, CUDA "
                                  f"{r['cuda_initialized']}, {json.dumps(info)}")
-    row = {"label": label, "kind": kind, "wall": r["wall"],
+    row = {"label": label, "kind": kind, "route": route_of(info), "wall": r["wall"],
            "phases": sum(info["timings"].values()), "torch": r["torch"],
            "cuda_initialized": r["cuda_initialized"], **{k: r[k] for k in _PIECES}}
     print(f"  {label:18s} wall {r['wall']:.3f} s = start {r['start_s']:.3f} + import "
           f"{r['import_s']:.3f} + main {r['main_s']:.3f} (phases {row['phases']:.3f}) + exit "
-          f"{r['exit_s']:.3f}; torch {r['torch']}, CUDA initialized {r['cuda_initialized']}; "
+          f"{r['exit_s']:.3f}; route {row['route']}; torch {r['torch']}, CUDA initialized "
+          f"{r['cuda_initialized']}; "
           f"{info['compare_carrier']} carried, {info['kernel_launches']} count launches, "
           f"{info['build_kernel_launches']} build launches; phases "
           f"{json.dumps(info['timings'])}", flush=True)
@@ -2656,7 +2696,7 @@ def _medians(rows: list[dict]) -> dict:
 
 
 def lazy_startup(eco_files: list[str], eco_reference: bytes, wide_files: list[str],
-                 wide_reference: bytes, tmp: str, turns: int = 2) -> dict:
+                 wide_reference: bytes, tmp: str, turns: int = 1) -> dict:
     """Phase 21: runs that never reach the card import no torch. ``turns``
     runs each of (a) and (b) at 29 x 5 Mbp, then at 116 x 5 Mbp a cold
     device-server run and ``turns`` runs of (c) through the daemon it
@@ -2691,6 +2731,144 @@ def lazy_startup(eco_files: list[str], eco_reference: bytes, wide_files: list[st
     return summary
 
 
+def fill_store(files: list[str], directory: str, env: dict) -> dict:
+    """One in-process streamed run of ``files`` on the card, which records a
+    copy rate in the calibration store that ``env`` names (an empty store
+    sends 116 x 5 Mbp to the host by the static rule); spawns no daemon.
+    Returns the store."""
+    r = cli_child(["--progress=never", "--device", "cuda", *files], directory,
+                  {**env, **IN_PROCESS, "PHYLONIUM_TPU_STREAM": "force"})
+    with open(env["PHYLONIUM_TPU_CALIBRATION_FILE"]) as f:
+        filled = json.load(f)
+    sock = env.get("PHYLONIUM_TPU_DEVD_SOCK")
+    if (r["rc"] != 0 or not filled.get("link_mb_s")
+            or (sock and os.path.exists(sock + ".pid"))):
+        raise AssertionError(f"the store's filling run: rc {r['rc']}, store {filled}, "
+                             f"{r['err'][-2000:]}")
+    print(f"  filled the store with an in-process run of {len(files)} genomes: "
+          f"{json.dumps({k: v for k, v in filled.items() if k != 'updated'})}; wall "
+          f"{r['wall']:.3f} s", flush=True)
+    return filled
+
+
+def default_route(wide_files: list[str], wide_reference: bytes, eco_files: list[str],
+                  tmp: str) -> dict:
+    """Phase 22: the default route of a single-process run on the card.
+
+    One in-process run (``PHYLONIUM_TPU_DEVD=0``, streamed) of the
+    29 x 5 Mbp panel fills a calibration store in this phase's directory
+    with a copy rate. Then the 116 x 5 Mbp panel with no routing variable,
+    on that store and with the server's socket in the same directory: a
+    cold run, which spawns the daemon, and a warm one, which reuses it;
+    each under ``PHYLONIUM_TPU_EXPECT_NO_TORCH=1``, decided by the measured
+    stream model's server branch, its launches in the daemon (one X1 a
+    group, one pair-count call) and none in the CLI, which makes no CUDA
+    context (``devd_check``). Last, with the daemon stopped, the same panel
+    with ``PHYLONIUM_TPU_DEVD=0``, in process, spawning none. Every run byte
+    for byte against the JAX package's host count."""
+    from phylonium_tpu_torch.core.stream import effective_group_rows
+
+    directory = os.path.join(tmp, "default_route")
+    os.makedirs(directory, exist_ok=True)
+    sock = os.path.join(directory, "d.sock")
+    env = {"PHYLONIUM_TPU_DEVD_SOCK": sock, "PHYLONIUM_TPU_DEVD_IDLE_S": "900",
+           "PHYLONIUM_TPU_CALIBRATION_FILE": os.path.join(directory, "calibration.json")}
+    groups = -(-len(wide_files) // effective_group_rows(len(wide_files)))
+    wide = ["--progress=never", "--device", "cuda", *wide_files]
+    runs = {}
+    try:
+        fill_store(eco_files, directory, env)
+        pid = None
+        for label in ("cold", "warm"):
+            r = cli_child(wide, directory, {**env, "PHYLONIUM_TPU_EXPECT_NO_TORCH": "1"})
+            info = devd_check(f"default {label}", r, wide_reference, groups)
+            ship, server, model = info["early_ship"], info["devd"], info.get("stream_model")
+            hits = 0 if label == "cold" else groups
+            if (ship["cache_hits"] != hits or server["socket"] != sock
+                    or not (model and model.get("devd"))
+                    or info["calibration"]["link_mb_s"] is None
+                    or (pid is not None and server["pid"] != pid)):
+                raise AssertionError(f"default {label} run: {json.dumps(info)}")
+            pid = server["pid"]
+            runs[label] = {"wall": r["wall"], "launches": server["launches"],
+                           "devd_count_s": info["devd_count_s"], "timings": info["timings"],
+                           **{k: r[k] for k in _PIECES}}
+            print(f"  default route, {label}: byte-identical to the JAX package's host count; "
+                  f"stream model {json.dumps(model)}; server pid {pid} launches "
+                  f"{json.dumps(server['launches'])}, none in the CLI, which imported no torch "
+                  f"and made no CUDA context; {ship['cache_hits']} cache hits, {ship['mb']} MB "
+                  f"shipped; wall {r['wall']:.3f} s = start {r['start_s']:.3f} + import "
+                  f"{r['import_s']:.3f} + main {r['main_s']:.3f} + exit {r['exit_s']:.3f}; "
+                  f"phases {json.dumps(info['timings'])}", flush=True)
+        if stop_daemon(sock) != pid:
+            raise AssertionError(f"the daemon on {sock} was not the one the cold run spawned")
+        r = cli_child(wide, directory, {**env, **IN_PROCESS})
+        info = r["passes"][-1] if r["passes"] else {}
+        if (r["rc"] != 0 or r["out"] != wide_reference or info.get("devd")
+                or info["build_kernel_launches"] != groups or info["stream_groups"] != groups
+                or not info["cuda_initialized"] or os.path.exists(sock + ".pid")):
+            raise AssertionError(f"the in-process run: rc {r['rc']}, {json.dumps(info)}, "
+                                 f"{r['err'][-2000:]}")
+        runs["in process"] = {"wall": r["wall"], "timings": info["timings"],
+                              **{k: r[k] for k in _PIECES}}
+        print(f"  PHYLONIUM_TPU_DEVD=0: byte-identical, in process, {groups} build launches, "
+              f"no daemon spawned; wall {r['wall']:.3f} s; phases {json.dumps(info['timings'])}",
+              flush=True)
+    finally:
+        stop_daemon(sock)
+        alive = [p for p in daemon_pids(sock) if pid_alive(p)]
+        if alive:
+            raise AssertionError(f"daemons outlived the default-route phase: {alive}")
+    return {"runs": runs, "build_launches": runs["warm"]["launches"]["build"],
+            "count_launches": runs["warm"]["launches"]["count"]}
+
+
+def default_socket_pid() -> int | None:
+    """The live daemon on the default socket of the card, if any."""
+    from phylonium_tpu_torch.serve.wire import sock_path
+
+    with env_set(PHYLONIUM_TPU_DEVD_SOCK=None):
+        path = sock_path("cuda:0")
+    try:
+        with open(path + ".pid") as f:
+            pid = int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+    return pid if pid_alive(pid) else None
+
+
+def no_daemon_left(directories: list[str], default_before: int | None) -> int:
+    """Fail if a daemon this script spawned is alive: a live pidfile, or a
+    live daemon in a socket's log, under ``directories``, or a daemon on
+    the default socket that was not there when the script started (each
+    found is stopped first). Returns the daemons the logs name."""
+    import signal
+
+    alive, seen = [], set()
+    for directory in directories:
+        for pidfile in glob.glob(os.path.join(directory, "**", "*.sock.pid"), recursive=True):
+            sock = pidfile[:-len(".pid")]
+            try:
+                with open(pidfile) as f:
+                    pid = int(f.read().strip())
+            except (OSError, ValueError):
+                continue
+            if pid_alive(pid):
+                alive.append((sock, pid))
+        for log in glob.glob(os.path.join(directory, "**", "*.sock.log"), recursive=True):
+            pids = daemon_pids(log[:-len(".log")])
+            seen |= pids
+            alive += [(log, pid) for pid in pids if pid_alive(pid)]
+    now = default_socket_pid()
+    if now is not None and now != default_before:
+        alive.append(("the default socket", now))
+    for _, pid in alive:
+        os.kill(pid, signal.SIGTERM)
+    if alive:
+        raise AssertionError(f"daemons outlived the script's phases: {sorted(set(alive))}")
+    return len(seen)
+
+
 def prebuild(repo: str) -> None:
     """Build the native host library and the CUDA kernels of the tree at
     ``repo`` in a process of their own, so that no timed run builds them."""
@@ -2712,9 +2890,11 @@ def startup_turns(pairs: int, parent: str, eco_files: list[str], eco_reference: 
     ``parent`` (an unpacked copy), ``pairs`` pairs in alternating order.
     In each pair, each tree runs (a) at 29 x 5 Mbp, a cold device-server
     run and a warm one (c) at 116 x 5 Mbp, then (d) with its daemon
-    stopped (``startup_run``; the parent's runs may import torch). Prints
-    each run, the medians by tree and kind, the parent minus this tree by
-    pair, and each tree's import split."""
+    stopped (``startup_run``; the parent's runs may import torch). Each
+    kind pins its route (``_STARTUP``), whatever the tree's default. Prints
+    each run with its route, the routes by tree and kind, the medians by
+    tree and kind, the parent minus this tree by pair, and each tree's
+    import split."""
     trees = {"change": REPO, "parent": os.path.abspath(parent)}
     prebuild(trees["parent"])
     rows = []
@@ -2754,6 +2934,9 @@ def startup_turns(pairs: int, parent: str, eco_files: list[str], eco_reference: 
     kinds = ("a", "cold", "c", "d")
     summary = {
         "pairs": pairs,
+        # each kind pins its route, so that both trees take the same one
+        "routes": {tree: {k: sorted({r["route"] for r in pick(tree, k)}) for k in kinds}
+                   for tree in trees},
         "medians_s": {tree: {k: _medians(pick(tree, k)) for k in kinds} for tree in trees},
         "parent_minus_change_s": {
             k: {piece: [round(p[piece] - c[piece], 6)
@@ -2792,6 +2975,8 @@ def main(argv: list[str] | None = None) -> int:
     from phylonium_tpu_torch.ops import _build
     from phylonium_tpu_torch.utils.platform import describe_device, resolve_device
 
+    # a daemon already on the card's default socket is not this script's
+    default_before = default_socket_pid()
     with phase("device"):
         device = resolve_device("cuda")
         info = describe_device(device)
@@ -2822,6 +3007,7 @@ def main(argv: list[str] | None = None) -> int:
             files = write_fasta(eco29_panel(116, 5_000_000), tmp)
             reference = run_reference_cli(["--progress=never", *files], tmp)
             device_server_turns(args.devd_turns, files, reference, tmp)
+            no_daemon_left([tmp], default_before)
         print(info["nvidia_smi"].splitlines()[0], flush=True)
         return 0
 
@@ -2836,6 +3022,7 @@ def main(argv: list[str] | None = None) -> int:
                           eco_files, run_reference_cli(["--progress=never", *eco_files], tmp),
                           wide_files, run_reference_cli(["--progress=never", *wide_files], tmp),
                           tmp)
+            no_daemon_left([tmp], default_before)
         print(info["nvidia_smi"].splitlines()[0], flush=True)
         return 0
 
@@ -2892,11 +3079,12 @@ def main(argv: list[str] | None = None) -> int:
             torch.cuda.empty_cache()
 
         with phase("device pileup end to end"):
-            # no 116 x 5 Mbp turns here, to make room for phase 20 (PERF.md
+            # no 116 x 5 Mbp turns here, nor --complete-deletion turns, to
+            # make room for phases 20-22 (PERF.md
             # keeps their earlier numbers)
             x2 = end_to_end_device_pileup(
                 "cuda", eco_files, eco_dir,
-                [([], eco_files), (["--complete-deletion"], eco_files)])
+                [([], eco_files)])
             torch.cuda.empty_cache()
 
         with phase("profile"):
@@ -2942,6 +3130,14 @@ def main(argv: list[str] | None = None) -> int:
             startup = lazy_startup(eco_files, e2e["reference"], wide_files,
                                    auto["wide_reference"], wide_dir)
 
+        with phase("default route"):
+            default = default_route(wide_files, auto["wide_reference"], eco_files, wide_dir)
+
+        with phase("no daemon left"):
+            served = no_daemon_left([eco_dir, wide_dir], default_before)
+            print(f"  {served} daemons served the script's phases; none is alive, and none "
+                  "on the card's default socket is the script's", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "pair_count",
         "route": "cuda",
@@ -2965,6 +3161,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_pod_streamed": pod["count_launches"],
         "launches_auto": auto["count_launches"],
         "launches_devd": devd["count_launches"],
+        "launches_default_route": default["count_launches"],
         "build_s": _build.BUILD_INFO["seconds"],
     }, {
         "name": "diagonal_neq",
@@ -3014,6 +3211,7 @@ def main(argv: list[str] | None = None) -> int:
         "bound_by_8x5000000": pod_group["bound_by"],
         "launches_auto": auto["build_launches"],
         "launches_devd": devd["build_launches"],
+        "launches_default_route": default["build_launches"],
         "ms_shipped_29x5000000": auto["group"]["ms"],
         "bound_ms_shipped_29x5000000": auto["group"]["bound_ms"],
         "build_s": _build.BUILD_INFO["seconds"],

@@ -87,6 +87,14 @@ def distance_matrix(
     torch.distributed ranks (``--mesh``): every rank of a world of R*C
     ranks calls this function alike and gets the same result. Remaining
     keywords mirror their CLI flags.
+
+    The run is the CLI's, in the caller's process: on a CUDA ``device``
+    in a single process, a panel that 'auto' counting streams (more than
+    one feeding group, which the dispatch model sends to the card) or
+    that takes the low-memory path is built and counted by the device
+    server, which the call spawns if none answers on its socket and which
+    stays up after it (``PHYLONIUM_TPU_DEVD_IDLE_S``), as the JAX API's
+    does; ``PHYLONIUM_TPU_DEVD=0`` keeps the work in this process.
     """
     if distance not in ("jc", "raw", "ani"):
         raise ValueError(

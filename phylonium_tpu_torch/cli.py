@@ -15,12 +15,14 @@ it, from the port's calibration store (utils/calibration.py): on a CUDA
 device the dispatch model may send the count to the host, the stream
 gate may stream, and the early query shipper (core/query_ship.py) copies
 each feeding group's 2-bit codes to the card while the files are read.
-``PHYLONIUM_TPU_DEVD=1`` sends the streamed and low-memory routes' builds
-and count to the device server (serve/), spawned on first use; this
-process then imports no torch and makes no CUDA context, and a server
-error (unreachable,
-another protocol, another device, poisoned, a failed build, a timeout)
-ends the run with exit 1 and no matrix.
+On a CUDA ``--device`` a single-process run sends the streamed and
+low-memory routes' builds and count to the device server (serve/),
+spawned on first use and reused after that, as the JAX CLI does
+(``PHYLONIUM_TPU_DEVD=0`` keeps them in this process, ``=1`` takes the
+server on the CPU too); this process then imports no torch and makes no
+CUDA context, and a server error (no daemon comes up, another protocol,
+another device, poisoned, a failed build, a timeout) ends the run with
+exit 1 and no matrix.
 ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
 (both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
 writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
@@ -459,7 +461,7 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
     worth it, groups of the streamed feeder's size, or of the low-memory
     group predicted from the file sizes; the largest file bounds the
     reference's length for the groups' int32 cuts. Under
-    ``devd_enabled()`` it ships to the device server; otherwise its
+    ``devd_enabled`` it ships to the device server; otherwise its
     worker imports torch and resolves the device on its own thread."""
     if not early_ship_eligible(cfg, file_names):
         return None
@@ -471,7 +473,7 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
     return QueryShipper(
         len(file_names), cfg.device, group_rows=group, ref_len_bound=max(sizes),
         store=calibration.for_device(cfg.device),
-        transport="devd" if devd_enabled() else "local",
+        transport="devd" if devd_enabled(cfg.device) else "local",
     )
 
 
@@ -488,7 +490,7 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         check_mesh(cfg)
-        devd_enabled()  # refused in a world of several ranks
+        devd_enabled(cfg.device)  # refused in a world of several ranks
         if (cfg.count_backend not in ("numpy", "host")
                 or cfg.map_backend == "hybrid"):
             check_device(cfg.device)  # fail before any work

@@ -15,10 +15,11 @@ genome's homologies as the native mapper's raw [H, 5] int64 rows.
   (core/stream.py), which builds the packed rows on ``cfg.device``; the
   host never holds the pileup.
 
-Through the device server (``PHYLONIUM_TPU_DEVD=1``) the feeder sends
-each group to the server, which builds and counts the panel there, and
-this process imports no torch and makes no CUDA context; ``info`` then
-carries the server's count time, ``devd_count_s`` (JAX :263-304).
+Through the device server (``serve.client.devd_enabled``: by default on
+a card in a single process) the feeder sends each group to the server,
+which builds and counts the panel there, and this process imports no
+torch and makes no CUDA context; ``info`` then carries the server's
+count time, ``devd_count_s`` (JAX :263-304).
 
 The JAX pipeline raced the two and cancelled the device leg when its
 queue passed two groups. Here the feeder's queue is bounded at two
@@ -198,7 +199,7 @@ def map_count_lowmem(
     group = shipper.group_rows if shipper is not None else group_rows_for(n, avg_len)
     feeder = None
     if cfg.count_backend != "host":
-        devd = devd_enabled()
+        devd = devd_enabled(cfg.device)
         device = check_device(cfg.device) if devd else resolve_device(cfg.device)
         feeder = DeviceRowFeeder(n, ref_len, device, shipper=shipper, devd=devd)
     elif shipper is not None:

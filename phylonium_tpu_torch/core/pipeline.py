@@ -64,16 +64,20 @@ by its dispatch model with the card's numbers (``_auto_prefers_host``,
 than one feeding group may stream. On the CPU 'auto' counts with the
 plain version and streams only under ``PHYLONIUM_TPU_STREAM=force``.
 
-With ``PHYLONIUM_TPU_DEVD=1`` (``serve.client.devd_enabled``; off by
-default) the feeder routes, streamed and low-memory with a device count,
-go through the device server (serve/): the early shipper parks each
-piece's 2-bit codes there, the feeder sends records and overlay, and the
-server builds and counts the panel on its device. Such a run
-(``devd_route``) never touches CUDA in this process: no torch, no
+A single-process run on a CUDA card sends the feeder routes, streamed
+and low-memory with a device count, to the device server (serve/) by
+default, as the JAX package does (``serve.client.devd_enabled``:
+``PHYLONIUM_TPU_DEVD=0`` keeps them in process, ``=1`` takes the server
+on the CPU too): the early shipper parks each piece's 2-bit codes there,
+the feeder sends records and overlay, and the server, spawned by the
+first run that needs it, builds and counts the panel on its device. Such
+a run (``devd_route``) never touches CUDA in this process: no torch, no
 context, no kernel library, no prewarm, no pinned memory
 (``cuda_initialized`` in the run report says so). Its report adds
 ``devd_count_s`` (the server's count time) and ``devd`` (socket, pid,
-protocol, cache hits, the server's launches and memory).
+protocol, cache hits, the server's launches and memory). The serial
+routes stay in process: a device count by flag, a single feeding group,
+complete deletion, ``-p``, checkpoints, hybrid mapping and X2.
 
 Not carried here, by the no-fallback rule (every decision is a function
 of the run's inputs and the store file): the JAX compare race
@@ -478,7 +482,7 @@ def _stream_predicts_win(n: int, ref_len: int, cfg: TorchRunConfig):
     if link is None:
         return None
     t_host = _work_gbp(n, ref_len) / store.host_compare_gbps()
-    if devd_enabled():
+    if devd_enabled(cfg.device):
         LAST_RUN_INFO["stream_model"] = {
             "link_mb_s": round(link, 2),
             "t_host_s": round(t_host, 3),
@@ -609,10 +613,10 @@ def device_pileup(cfg: TorchRunConfig) -> bool:
 
 def devd_route(n: int, ref_len: int, total_bp: int, cfg: TorchRunConfig) -> bool:
     """Does this run's device work go to the device server? Under
-    ``devd_enabled()``, the runs whose panel the feeder builds: the
+    ``devd_enabled``, the runs whose panel the feeder builds: the
     low-memory path with a device count, or the streamed path (their gates
     before the index, which they take as native)."""
-    if not devd_enabled():
+    if not devd_enabled(cfg.device):
         return False
     if should_lowmem(n, total_bp, cfg):
         return cfg.count_backend != "host"
@@ -860,7 +864,7 @@ def _streamed(ref, threshold, subject, queries, cfg, timings, warm, store) -> tu
     device, from the early shipper's resident codes where it holds them,
     then count the resident panel; through the device server, the server
     builds and counts it."""
-    devd = devd_enabled()
+    devd = devd_enabled(cfg.device)
     _join(warm)
     device = check_device(cfg.device) if devd else resolve_device(cfg.device)
     feeder = DeviceRowFeeder(len(queries), len(subject), device,

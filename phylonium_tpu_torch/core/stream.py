@@ -36,15 +36,16 @@ This module loads without torch: a feeder imports it in its constructor,
 on the local route only, and the device modules (``ops.pileup_device``,
 ``ops.pair_count``) where it builds and counts.
 
-With ``devd`` (``serve.client.devd_enabled()``, the device server) the
-feeder holds no panel and touches no CUDA: the worker preps each group
-as above and sends its records and overlay (and its 2-bit words, unless
-the shipper parked them in the server: ``take`` gives a
-``query_ship.DevdGroup``) as one ``group`` request, and ``finish()``
-asks the server to count the panel it built (``_drain_devd``, the port
-of the JAX feeder's). Each feeder sends a generation of its own, from a
-process-wide counter, so that the second pass of ``-2`` (the same run id,
-its pieces still resident) starts a fresh panel in the server.
+With ``devd`` (``serve.client.devd_enabled``, the device server: the
+default of a single-process run on a card) the feeder holds no panel
+and touches no CUDA: the worker preps each group as above and sends its
+records and overlay (and its 2-bit words, unless the shipper parked
+them in the server: ``take`` gives a ``query_ship.DevdGroup``) as one
+``group`` request, and ``finish()`` asks the server to count the panel it
+built (``_drain_devd``, the port of the JAX feeder's). Each feeder sends
+a generation of its own, from a process-wide counter, so that the second
+pass of ``-2`` (the same run id, its pieces still resident) starts a
+fresh panel in the server.
 """
 
 from __future__ import annotations

@@ -13,8 +13,11 @@ than the run's is refused.
 
 Every failure raises :class:`DevdError` with the socket's path and the
 daemon's error: an unreachable server, a refused protocol, a wrong
-device, poison, a failed build, a timeout. The run fails with it; no
-caller retries in process or on the host.
+device, poison, a failed build, a timeout. Where no daemon comes up (its
+socket's directory cannot be made, the daemon exits at start or never
+answers), the error also quotes the tail of the daemon's log and names
+``PHYLONIUM_TPU_DEVD=0``, which runs the device work in process. The run
+fails with it; no caller retries in process or on the host.
 
 Like the JAX client, this module imports numpy only, never torch: the CLI
 process of a device-server run makes no tensor.
@@ -34,38 +37,44 @@ import numpy as np
 
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.serve.wire import PROTOCOL, recv_msg, send_msg, sock_path
-from phylonium_tpu_torch.utils.platform import parse_device
+from phylonium_tpu_torch.utils.platform import device_type, parse_device
 
 
 class DevdError(RuntimeError):
     pass
 
 
-def devd_enabled() -> bool:
-    """Does this run's device work go through the device server?
+def devd_enabled(device) -> bool:
+    """Does this run's streamed and low-memory device work go through the
+    device server?
 
-    ``PHYLONIUM_TPU_DEVD=1`` turns it on, on any device (CPU runs
-    included, for the tests); unset or ``0`` leaves it off. The JAX
-    package turns it on by default for single-process device runs, to
-    spare each fresh process its TPU's first-execution cost; a card has
-    no such cost worth a resident process, which would hold the card for
-    ``PHYLONIUM_TPU_DEVD_IDLE_S`` after every run. A world of several
-    ranks keeps each rank's cell on its own rank: ``=1`` there raises
-    ConfigError. The variable holds the choice only until a benchmark
-    has timed a first run and a re-run of a panel on each route
-    (ROADMAP.md, queue 1, "the device-server switch").
+    The JAX package's gate (phylonium_tpu/serve/client.py:36-51),
+    condition for condition. ``PHYLONIUM_TPU_DEVD=0`` keeps the work in
+    this process; ``=1`` sends it to the server on any device, CPU runs
+    included (the tests); otherwise the server takes it exactly where
+    ``device`` is a CUDA card (the JAX ``not cpu_pinned()``) and the run
+    is a world of one rank (the JAX ``not _is_multiprocess()``). The
+    server keeps the card's context, its kernel library and the genomes
+    it was sent across runs, so such a run never imports torch, while an
+    in-process run waits seconds for torch's import and the context. A
+    world of several ranks keeps each rank's cell on its own rank: off by
+    default, and ``=1`` there raises ConfigError.
     """
-    if os.environ.get("PHYLONIUM_TPU_DEVD", "") != "1":
+    env = os.environ.get("PHYLONIUM_TPU_DEVD", "")
+    if env == "0":
         return False
     from phylonium_tpu_torch.parallel.multihost import world
 
-    if world()[0] > 1:
-        raise ConfigError(
-            "PHYLONIUM_TPU_DEVD=1 asks for the device server, but this is a "
-            "world of several ranks, whose cells stay each on its own rank; "
-            "unset PHYLONIUM_TPU_DEVD"
-        )
-    return True
+    several = world()[0] > 1
+    if env == "1":
+        if several:
+            raise ConfigError(
+                "PHYLONIUM_TPU_DEVD=1 asks for the device server, but this is a "
+                "world of several ranks, whose cells stay each on its own rank; "
+                "unset PHYLONIUM_TPU_DEVD"
+            )
+        return True
+    return not several and device_type(device) == "cuda"
 
 
 def device_name(device) -> str:
@@ -158,7 +167,12 @@ class DevdClient:
         deadline = time.monotonic() + wait
         # spawn only when no live daemon owns the socket: one still
         # starting is waited for, never replaced
-        proc = self.spawn_daemon() if self._pidfile_alive() is None else None
+        proc = None
+        if self._pidfile_alive() is None:
+            try:
+                proc = self.spawn_daemon()
+            except OSError as e:
+                raise self._not_up(f"no daemon could be spawned: {e}") from e
         last: Exception | None = None
         while time.monotonic() < deadline:
             try:
@@ -166,10 +180,7 @@ class DevdClient:
             except OSError as e:
                 last = e
                 if proc is not None and proc.poll() is not None:
-                    raise self._error(
-                        f"the spawned daemon exited with {proc.returncode}: "
-                        f"{self._log_tail()}"
-                    )
+                    raise self._not_up(f"the spawned daemon exited with {proc.returncode}")
                 time.sleep(0.1)
                 continue
             reply = self._hello(sock)
@@ -180,7 +191,15 @@ class DevdClient:
                     f"speaks {PROTOCOL!r})"
                 )
             return self._accept(sock, reply)
-        raise self._error(f"did not come up within {wait:.0f} s: {last!r}")
+        raise self._not_up(f"did not come up within {wait:.0f} s: {last!r}")
+
+    def _not_up(self, msg: str) -> DevdError:
+        """No daemon serves the socket: the error names the daemon's log
+        and its tail, and the way to run without a server."""
+        return self._error(
+            f"{msg}; the daemon's log {self.path}.log ends: {self._log_tail()}; "
+            "PHYLONIUM_TPU_DEVD=0 runs the device work in this process"
+        )
 
     def _log_tail(self) -> str:
         try:

@@ -21,8 +21,18 @@ their own and stop it by its pidfile. Held against the JAX package:
   poison (the client retires the daemon, the next run spawns a fresh
   one), an unreachable server, a daemon of another protocol (replaced on
   the next connect), a daemon on another device, several ranks;
-- ``devd_enabled``'s table and ``_stream_predicts_win``'s server branch
-  against the JAX function with the JAX tail.
+- ``devd_enabled``'s table against the JAX gate (its ``cpu_pinned`` and
+  ``_is_multiprocess`` patched to the port's device and world), and
+  ``_stream_predicts_win``'s server branch against the JAX function with
+  the JAX tail;
+- the default route: which runs on a card the server takes (``devd_route``,
+  and no prewarm for them); a CLI child with one card faked, no routing
+  variable and a calibrated store streams through the module's daemon
+  (the client takes the card for the daemon's CPU), imports no torch and
+  prints the JAX CLI's bytes; where no daemon can start (its socket's
+  directory cannot be made, or it finds no card and exits) the run exits
+  1 with no matrix and a message naming the socket, the daemon's log and
+  ``PHYLONIUM_TPU_DEVD=0``.
 """
 
 import contextlib
@@ -702,11 +712,16 @@ def test_several_ranks_refuse_the_server(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("env", [None, "0", "1"])
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("ranks", [1, 4])
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+@pytest.mark.parametrize("ranks", [1, 2, 4])
 def test_devd_enabled_table(env, device, ranks, monkeypatch):
-    """Unset and 0 are off, 1 is on, on any device; 1 in a world of
-    several ranks is refused. The device does not enter."""
+    """The JAX gate's table: 0 is off, 1 is on on any device, unset is on
+    exactly for a card in a world of one rank (the JAX ``cpu_pinned()``
+    patched to a CPU ``--device``, its ``_is_multiprocess`` to several
+    ranks). The one departure: 1 in a world of several ranks is refused."""
+    import phylonium_tpu.core.pipeline as jax_pipeline
+    import phylonium_tpu.serve.client as jax_client
+    import phylonium_tpu.utils.platform as jax_platform
     import phylonium_tpu_torch.parallel.multihost as multihost
 
     if env is None:
@@ -714,11 +729,163 @@ def test_devd_enabled_table(env, device, ranks, monkeypatch):
     else:
         monkeypatch.setenv("PHYLONIUM_TPU_DEVD", env)
     monkeypatch.setattr(multihost, "world", lambda: (ranks, 0))
+    monkeypatch.setattr(jax_platform, "cpu_pinned", lambda: device == "cpu")
+    monkeypatch.setattr(jax_pipeline, "_is_multiprocess", lambda: ranks > 1)
+    want = jax_client.devd_enabled()
     if env == "1" and ranks > 1:
+        assert want is True
         with pytest.raises(ConfigError, match="several ranks"):
-            devd_client.devd_enabled()
+            devd_client.devd_enabled(device)
     else:
-        assert devd_client.devd_enabled() is (env == "1")
+        assert devd_client.devd_enabled(device) is want
+        assert want is (env == "1" or (env is None and device != "cpu" and ranks == 1))
+
+
+# name: (config fields, environment, whether the server takes the run)
+_ROUTES = {
+    "streamed": ({}, {"PHYLONIUM_TPU_STREAM": "force"}, True),
+    "low-memory": ({}, {"PHYLONIUM_TPU_LOWMEM": "force"}, True),
+    "low-memory, host count": ({"count_backend": "host"}, {"PHYLONIUM_TPU_LOWMEM": "force"},
+                               False),
+    "device count": ({"count_backend": "device"}, {"PHYLONIUM_TPU_STREAM": "force"}, False),
+    "one group": ({}, {"PHYLONIUM_TPU_STREAM_GROUP": "64"}, False),
+    "complete deletion": ({"complete_deletion": True}, {"PHYLONIUM_TPU_STREAM": "force"},
+                          False),
+    "hybrid": ({"map_backend": "hybrid"}, {"PHYLONIUM_TPU_STREAM": "force"}, False),
+    "X2": ({}, {"PHYLONIUM_TPU_DEVICE_PILEUP": "1", "PHYLONIUM_TPU_STREAM": "0"}, False),
+    "in process": ({}, {"PHYLONIUM_TPU_STREAM": "force", "PHYLONIUM_TPU_DEVD": "0"}, False),
+    "cpu": ({"device": "cpu"}, {"PHYLONIUM_TPU_STREAM": "force"}, False),
+}
+
+
+@pytest.mark.parametrize("name", list(_ROUTES))
+def test_default_route_of_a_card_run(name, monkeypatch):
+    """With no PHYLONIUM_TPU_DEVD a run on a card sends the feeder routes
+    to the server, and then makes no prewarm; the serial routes stay in
+    process."""
+    from phylonium_tpu_torch.config import TorchRunConfig
+    from phylonium_tpu_torch.core import pipeline
+
+    fields, env, served = _ROUTES[name]
+    for key in ("PHYLONIUM_TPU_DEVD", "PHYLONIUM_TPU_STREAM", "PHYLONIUM_TPU_STREAM_GROUP",
+                "PHYLONIUM_TPU_LOWMEM", "PHYLONIUM_TPU_DEVICE_PILEUP"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    # a threshold of 0 Gbp keeps the dispatch model's count on the card
+    monkeypatch.setenv("PHYLONIUM_TPU_AUTO_DEVICE_GBP", "0")
+    cfg = TorchRunConfig(**{"device": "cuda", **fields})
+    n, ref_len = 29, 5_000
+    assert pipeline.devd_route(n, ref_len, n * ref_len, cfg) is served
+    if served:
+        assert pipeline.prewarm_device(n, ref_len, n * ref_len, cfg) is None
+
+
+# The port's entry point (``python -m phylonium_tpu_torch``, by runpy) with
+# one card faked: the CUDA driver's count patched to one; with argv[2] "1"
+# the client also takes the card for the CPU daemon's device, so that a
+# ``--device cuda`` run reaches the module's CPU daemon. What the run
+# loaded goes to argv[1] before the entry point's torch guard and exit.
+_CARD_CHILD = """
+import json, runpy, sys
+report, to_cpu, *args = sys.argv[1:]
+sys.argv = ["phylonium_tpu_torch", *args]
+import phylonium_tpu_torch.cli as cli
+from phylonium_tpu_torch.serve import client
+from phylonium_tpu_torch.utils import platform
+platform.cuda_device_count = lambda: 1
+if to_cpu == "1":
+    client.device_name = lambda device: "cpu"
+main = cli.main
+def recorded(argv=None):
+    rc = main(argv)
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+    torch = sys.modules.get("torch")
+    with open(report, "w") as f:
+        json.dump({"rc": rc, "torch": torch is not None, "info": LAST_RUN_INFO}, f)
+    return rc
+cli.main = recorded
+runpy.run_module("phylonium_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _card_run(files, tmp_path, sock, to_cpu: bool, store: dict):
+    """One default-route CLI run of ``files`` on the faked card, in a child
+    under PHYLONIUM_TPU_EXPECT_NO_TORCH, with a calibration store holding
+    ``store`` and the server's socket at ``sock``."""
+    path = tmp_path / "calibration.json"
+    path.write_text(json.dumps(store))
+    report = tmp_path / "child.json"
+    env = _env(sock, HOME=str(tmp_path), PHYLONIUM_TPU_CALIBRATION_FILE=str(path),
+               PHYLONIUM_TPU_EXPECT_NO_TORCH="1", PHYLONIUM_TPU_DEVD_SPAWN_WAIT="60")
+    for key in ("PHYLONIUM_TPU_DEVD", "PHYLONIUM_TPU_STREAM", "PHYLONIUM_TPU_STREAM_GROUP",
+                "PHYLONIUM_TPU_LOWMEM", "PHYLONIUM_TPU_DEVICE_PILEUP",
+                "PHYLONIUM_TPU_AUTO_DEVICE_GBP", "PHYLONIUM_TPU_DEVD_INJECT"):
+        env.pop(key, None)
+    r = subprocess.run(
+        [sys.executable, "-c", _CARD_CHILD, str(report), "1" if to_cpu else "0",
+         "--progress=never", "--device", "cuda", *files],
+        capture_output=True, cwd=tmp_path, env=env, timeout=300,
+    )
+    child = json.loads(report.read_text()) if report.exists() else None
+    return r, child
+
+
+# a copy rate, and a host compare slow enough that the measured model's
+# server branch streams the small panel (its host time above the tail)
+_CALIBRATED = {"link_mb_s": 1000.0, "host_compare_gbps": 0.001, "map_gbps": 0.25}
+
+
+def test_a_card_run_takes_the_server_by_default(module_daemon, tmp_path):
+    """No routing variable, one card, a calibrated store: the run streams
+    through the server, imports no torch and makes no context, and prints
+    the JAX CLI's bytes."""
+    files = write_fasta_panel(tmp_path, 10, 2500, seed=61)
+    r, child = _card_run(files, tmp_path, module_daemon, True, _CALIBRATED)
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    assert child["rc"] == 0 and child["torch"] is False
+    info = child["info"]
+    assert info["calibration"]["link_mb_s"] == 1000.0
+    assert info["stream_model"]["devd"] is True
+    assert info["cuda_initialized"] is False and "prewarm" not in info
+    groups = info["stream_groups"]
+    assert groups == 2 and info["early_ship"]["taken"] == groups
+    assert info["devd"]["socket"] == module_daemon
+    assert info["devd"]["launches"] == {"build": 0, "build_plain": groups, "count": 0,
+                                        "count_plain": 1}
+    assert info["kernel_launches"] == info["plain_calls"] == 0
+    assert info["build_kernel_launches"] == info["build_plain_calls"] == 0
+    assert r.stdout.decode() == _jax_run(files)
+
+
+@pytest.mark.parametrize("fault", ["socket directory", "daemon exits"])
+def test_a_daemon_that_cannot_start_fails_the_run(fault, tmp_path):
+    """The default route on the faked card where no daemon comes up: the
+    socket's directory cannot be made (a file stands in its place), or the
+    daemon it spawns finds no card and exits. Exit 1, no matrix, nothing
+    run in process, and the message names the socket, the daemon's log
+    and PHYLONIUM_TPU_DEVD=0."""
+    files = write_fasta_panel(tmp_path, 10, 2500, seed=67)
+    if fault == "socket directory":
+        (tmp_path / "taken").write_text("a file, not a directory")
+        sock = str(tmp_path / "taken" / "d.sock")
+    else:
+        sock = str(tmp_path / "devd" / "d.sock")
+    r, child = _card_run(files, tmp_path, sock, False, _CALIBRATED)
+    err = r.stderr.decode()
+    assert r.returncode == 1 and r.stdout == b"", err[-2000:]
+    assert child["rc"] == 1 and child["torch"] is False and "devd" not in child["info"]
+    start = f"phylonium-tpu-torch: device server at {sock}: "
+    assert start in err
+    message = err[err.index(start):].strip()  # the log's tail may span lines
+    assert f"the daemon's log {sock}.log ends: " in message
+    assert message.endswith("PHYLONIUM_TPU_DEVD=0 runs the device work in this process")
+    if fault == "daemon exits":
+        assert "the spawned daemon exited with 1" in message
+        assert "finds no CUDA device" in message  # the log's tail
+        assert not os.path.exists(sock) and not os.path.exists(sock + ".pid")
+    else:
+        assert "no daemon could be spawned" in message
 
 
 # -- the stream model's server branch against the JAX one ---------------------

@@ -7,11 +7,13 @@
   ``early_ship_eligible`` decide as the JAX functions do on a hypothesis
   grid of panel sizes, reference lengths, calibrated rates (a copy rate
   or none) and the ``PHYLONIUM_TPU_AUTO_DEVICE_GBP`` override, both read
-  from one calibration file. The JAX device server is off
-  (``PHYLONIUM_TPU_DEVD=0``): its branch waits for the port of ``serve/``.
+  from one calibration file: once with both device servers off
+  (``PHYLONIUM_TPU_DEVD=0``), once with both on by default (a card in one
+  process, the port's server tail set to the JAX tail), where the models
+  take their server branch.
 - ``should_stream``'s conditions against JAX ``_should_stream`` over every
   combination of flags, the stream switch and the device (the JAX
-  ``cpu_pinned()`` against ``--device cpu``).
+  ``cpu_pinned()`` against ``--device cpu``), with the servers off and on.
 - Hand-worked cases with the card's own constants.
 """
 
@@ -25,6 +27,7 @@ from hypothesis import strategies as st
 
 import phylonium_tpu.core.pipeline as jax_pipeline
 import phylonium_tpu.core.query_ship as jax_query_ship
+import phylonium_tpu.serve.client as jax_client
 import phylonium_tpu.utils.calibration as jax_calibration
 import phylonium_tpu.utils.platform as jax_platform
 from phylonium_tpu.config import RunConfig
@@ -54,6 +57,18 @@ def jax_constants(monkeypatch, tmp_path):
     return path
 
 
+@pytest.fixture
+def servers_on(jax_constants, monkeypatch):
+    """``jax_constants`` with both device servers on by default: no
+    PHYLONIUM_TPU_DEVD, a single process, and the port's server tail set to
+    the JAX tail (its devd branch's constant)."""
+    monkeypatch.delenv("PHYLONIUM_TPU_DEVD")
+    monkeypatch.setattr(jax_pipeline, "_is_multiprocess", lambda: False)
+    monkeypatch.setattr(pipeline, "_DEVD_TAIL_S", jax_pipeline._DEVICE_TAIL_S)
+    assert pipeline.devd_enabled("cuda") and jax_client.devd_enabled()
+    return jax_constants
+
+
 def _configs(**fields):
     jax_cfg = RunConfig(**fields)
     port_cfg = TorchRunConfig(device="cuda", **fields)
@@ -80,11 +95,8 @@ _SETTINGS = settings(max_examples=300, deadline=None, derandomize=True,
                      suppress_health_check=[HealthCheck.function_scoped_fixture])
 
 
-@_SETTINGS
-@given(**_GRID)
-def test_dispatch_models_decide_as_the_jax_package(jax_constants, n, ref_len, link, host,
-                                                   mapr, override):
-    _write_store(jax_constants, link, host, mapr)
+def _models_decide_alike(path, n, ref_len, link, host, mapr, override, devd=False):
+    _write_store(path, link, host, mapr)
     if override is None:
         os.environ.pop("PHYLONIUM_TPU_AUTO_DEVICE_GBP", None)
     else:
@@ -95,6 +107,8 @@ def test_dispatch_models_decide_as_the_jax_package(jax_constants, n, ref_len, li
             == jax_pipeline._auto_prefers_host(n, ref_len, jax_cfg))
     assert (pipeline._stream_predicts_win(n, ref_len, port_cfg)
             == jax_pipeline._stream_predicts_win(n, ref_len, jax_cfg))
+    if link is not None and override is None:  # the measured model decided
+        assert pipeline.LAST_RUN_INFO["stream_model"].get("devd", False) is devd
     for key in ("dispatch_model", "stream_model"):
         if key in jax_pipeline.LAST_RUN_INFO and key in pipeline.LAST_RUN_INFO:
             if pipeline.LAST_RUN_INFO[key].get("link_mb_s") is not None:
@@ -105,11 +119,23 @@ def test_dispatch_models_decide_as_the_jax_package(jax_constants, n, ref_len, li
 
 
 @_SETTINGS
-@given(**_GRID, bytes_per_base=st.floats(1.0, 1.1), stream=st.sampled_from(["", "0", "force"]))
-def test_early_ship_eligible_decides_as_the_jax_package(jax_constants, monkeypatch, n, ref_len,
-                                                        link, host, mapr, override,
-                                                        bytes_per_base, stream):
-    _write_store(jax_constants, link, host, mapr)
+@given(**_GRID)
+def test_dispatch_models_decide_as_the_jax_package(jax_constants, n, ref_len, link, host,
+                                                   mapr, override):
+    _models_decide_alike(jax_constants, n, ref_len, link, host, mapr, override)
+
+
+@_SETTINGS
+@given(**_GRID)
+def test_dispatch_models_decide_as_the_jax_package_with_the_server(servers_on, n, ref_len,
+                                                                   link, host, mapr,
+                                                                   override):
+    _models_decide_alike(servers_on, n, ref_len, link, host, mapr, override, devd=True)
+
+
+def _early_ship_alike(path, monkeypatch, n, ref_len, link, host, mapr, override,
+                      bytes_per_base, stream):
+    _write_store(path, link, host, mapr)
     env = {"PHYLONIUM_TPU_AUTO_DEVICE_GBP": override, "PHYLONIUM_TPU_STREAM": stream or None}
     for key, value in env.items():
         if value is None:
@@ -125,6 +151,28 @@ def test_early_ship_eligible_decides_as_the_jax_package(jax_constants, monkeypat
                 == jax_query_ship.early_ship_eligible(jax_cfg, names))
     for key in env:
         os.environ.pop(key, None)
+
+
+_SHIP_GRID = dict(**_GRID, bytes_per_base=st.floats(1.0, 1.1),
+                  stream=st.sampled_from(["", "0", "force"]))
+
+
+@_SETTINGS
+@given(**_SHIP_GRID)
+def test_early_ship_eligible_decides_as_the_jax_package(jax_constants, monkeypatch, n, ref_len,
+                                                        link, host, mapr, override,
+                                                        bytes_per_base, stream):
+    _early_ship_alike(jax_constants, monkeypatch, n, ref_len, link, host, mapr, override,
+                      bytes_per_base, stream)
+
+
+@_SETTINGS
+@given(**_SHIP_GRID)
+def test_early_ship_eligible_decides_as_the_jax_package_with_the_server(
+        servers_on, monkeypatch, n, ref_len, link, host, mapr, override, bytes_per_base,
+        stream):
+    _early_ship_alike(servers_on, monkeypatch, n, ref_len, link, host, mapr, override,
+                      bytes_per_base, stream)
 
 
 def test_early_ship_structural_conditions(jax_constants, monkeypatch):
@@ -167,8 +215,7 @@ _SHOULD_FIELDS = [{}, {"count_backend": "host"}, {"count_backend": "device"}, {"
                   {"map_backend": "native"}]
 
 
-@pytest.mark.parametrize("stream", ["", "0", "force"])
-def test_should_stream_conditions_match_the_jax_gate(jax_constants, monkeypatch, stream):
+def _should_stream_alike(path, monkeypatch, stream):
     import phylonium_tpu.utils.platform as plat
 
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", stream)
@@ -180,7 +227,7 @@ def test_should_stream_conditions_match_the_jax_gate(jax_constants, monkeypatch,
         [None, 20_000.0],  # a calibrated copy rate, or none
     )
     for fields, backend, cpu, shipper, (n, ref_len), link in cases:
-        _write_store(jax_constants, link, None, None)
+        _write_store(path, link, None, None)
         jax_cfg, port_cfg = _configs(**fields)
         if shipper is not None:
             jax_cfg._query_shipper = _Shipper(shipper)
@@ -191,6 +238,18 @@ def test_should_stream_conditions_match_the_jax_gate(jax_constants, monkeypatch,
         want = jax_pipeline._should_stream(n, ref_len, jax_cfg, _Ref(backend))
         got = pipeline.should_stream(n, ref_len, port_cfg, _Ref(backend))
         assert got == want, (stream, fields, backend, cpu, shipper, n, ref_len, link)
+
+
+
+@pytest.mark.parametrize("stream", ["", "0", "force"])
+def test_should_stream_conditions_match_the_jax_gate(jax_constants, monkeypatch, stream):
+    _should_stream_alike(jax_constants, monkeypatch, stream)
+
+
+@pytest.mark.parametrize("stream", ["", "0", "force"])
+def test_should_stream_conditions_match_the_jax_gate_with_the_server(servers_on, monkeypatch,
+                                                                     stream):
+    _should_stream_alike(servers_on, monkeypatch, stream)
 
 
 def test_hand_worked_cases_with_the_cards_constants(tmp_path, monkeypatch):

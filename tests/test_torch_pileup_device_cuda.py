@@ -139,6 +139,7 @@ def test_streamed_and_lowmem_cli_on_card(card, tmp_path, monkeypatch):
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
 
     files = write_fasta_panel(tmp_path, 7, 20_000, seed=6, contigs=2)
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "0")  # in process: this process builds
     rc, serial = _cli(files)
     assert rc == 0
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
@@ -204,6 +205,7 @@ def test_device_pileup_cli_on_card(card, tmp_path, monkeypatch):
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
 
     files = write_fasta_panel(tmp_path, 7, 20_000, seed=6, contigs=2)
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "0")  # in process: this process builds
     # the count pinned on the card: 'auto' would send so small a panel to
     # the host, and X2 builds only for a count on the card
     for flags in (["--count-backend", "device"],

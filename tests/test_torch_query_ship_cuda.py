@@ -96,6 +96,7 @@ def test_shipped_cli_on_the_card(card, tmp_path, monkeypatch):
     from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
 
     monkeypatch.setenv("PHYLONIUM_TPU_CALIBRATION_FILE", str(tmp_path / "c.json"))
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "0")  # in process: this process ships
     files = write_fasta_panel(tmp_path, 11, 4000, seed=12, contigs=2)
     outs = []
     for stream in ("0", "force"):

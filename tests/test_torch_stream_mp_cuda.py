@@ -113,6 +113,8 @@ print(json.dumps({"rc": rc, "info": LAST_RUN_INFO}), file=sys.stderr)
 def test_two_ranks_sharing_the_card(card, tmp_path, monkeypatch):
     monkeypatch.delenv("PHYLONIUM_TPU_STREAM", raising=False)
     monkeypatch.delenv("PHYLONIUM_TPU_STREAM_GROUP", raising=False)
+    # no PHYLONIUM_TPU_DEVD: a world of several ranks never takes the server
+    monkeypatch.delenv("PHYLONIUM_TPU_DEVD", raising=False)
     files = write_fasta_panel(tmp_path, 11, 20_000, seed=8, contigs=2)
     outs = spawn_world(_CLI, 2, tmp_path,
                        args=["--progress=never", "--device", "cuda", "-v", "-v", *files])
@@ -145,6 +147,7 @@ def test_a_fresh_process_reports_its_prewarm(card, tmp_path):
     env["PHYLONIUM_TPU_RUN_REPORT"] = str(tmp_path / "report.json")
     for key in ("PHYLONIUM_TPU_STREAM", "PHYLONIUM_TPU_DEVICE_PILEUP", "PHYLONIUM_TPU_LOWMEM"):
         env.pop(key, None)
+    env["PHYLONIUM_TPU_DEVD"] = "0"  # in process: the prewarm is this process's
     proc = subprocess.run(
         # the count pinned on the card: 'auto' would send so small a panel
         # to the host, with no prewarm
