@@ -174,7 +174,23 @@ non-zero exit and no result line:
     against the JAX package's host count;
 23. no daemon left: no live pidfile and no live daemon in a socket's log
     under the script's directories, and none on the card's default socket
-    that was not there when the script started.
+    that was not there when the script started;
+24. the local counting mesh (a process of one rank spanning its cards,
+    here cells on the one card with ``utils.platform.local_devices``
+    patched): (a) ``pair_counts_sharded`` on local meshes (2, 2) at
+    29 x 5 Mbp, (1, 4) and (2, 2) at 600 x 1 Mbp, each bit for bit against
+    ``pair_counts_rows``, K2 twice a cell, collective bytes as predicted,
+    in turns mesh, one device, one device, mesh with each step's wall;
+    (b) the port's CLI in this process with ``--mesh 2,2`` on four cells on
+    the card at 29 x 5 Mbp, byte for byte against phase 7's reference, the
+    run report's mesh backend "local", 8 pair-count launches, no plain
+    call; (c) 'auto' with the CUDA driver's count and the local devices
+    patched to two cells, on phase 19's 600 x 1 Mbp panel with the default
+    route on an empty store: the serial route onto the (1, 2) local mesh,
+    no stream group, no shipper, no device server, byte for byte against
+    the JAX package's host count; (d) unpatched, in a child, ``--mesh 2,2``
+    on the one card exits 1 with the JAX package's sentence and an empty
+    stdout; each part's time.
 
 Each phase runs with a calibration store of its own in a temporary
 directory (``PHYLONIUM_TPU_CALIBRATION_FILE``); the phases that drive one
@@ -2154,6 +2170,7 @@ def auto_dispatch(device, eco_files: list[str], eco_reference: bytes,
         raise AssertionError("no 'auto' run streamed: the shipped route was not driven")
     return {"constants": constants, "group": group, "runs": runs,
             "wide_reference": panels["116 x 5 Mbp"][1],
+            "panel_600": panels["600 x 1 Mbp"],
             "build_launches": sum(r["counts"]["build_launches"] for r in runs.values()),
             "count_launches": sum(r["counts"]["count_launches"] for r in runs.values())}
 
@@ -2949,6 +2966,222 @@ def startup_turns(pairs: int, parent: str, eco_files: list[str], eco_reference: 
     return summary
 
 
+@contextlib.contextmanager
+def patched(module, **values):
+    """Set ``module``'s attributes for the body only."""
+    saved = {k: getattr(module, k) for k in values}
+    try:
+        for k, v in values.items():
+            setattr(module, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def local_cells(device, cells: int) -> dict:
+    """``utils.platform.local_devices`` patched to ``cells`` cells on the
+    card: the local mesh's devices of a machine with that many cards."""
+    from phylonium_tpu_torch.utils import platform
+
+    one = platform.DeviceName("cuda", device.index)
+    return {"local_devices": lambda name: [one] * cells}
+
+
+def local_mesh_counts(device) -> dict:
+    """Phase 24 (a): ``pair_counts_sharded`` on local meshes with every
+    cell on the card, (2, 2) at 29 x 5 Mbp and (1, 4) and (2, 2) at
+    600 x 1 Mbp, each bit for bit against ``pair_counts_rows``, K2 twice a
+    cell and no plain call, the bytes as predicted; the walls of the
+    mesh's steps (host clock, each step's device work waited for) in
+    turns mesh, one device, one device, mesh, the one-device count's wall
+    (pack, copy, K1, fetch) beside them."""
+    import numpy as np
+    import torch
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.ops.states import pack_rows, to_device
+
+    out = {}
+    for (n, length), shapes in (((29, 5_000_000), [(2, 2)]),
+                                ((600, 1_000_000), [(1, 4), (2, 2)])):
+        states = random_states(np.random.default_rng(24 + n), n, length)
+
+        def one_device():
+            return pair_count.pair_counts_rows(to_device(pack_rows(states), device))
+
+        want = one_device()
+        for shape in shapes:
+            out.update(local_mesh_turns(device, states, shape, want, one_device))
+        del states, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def local_mesh_turns(device, states, shape, want, one_device) -> dict:
+    """Part of phase 24 (a): the ``shape`` local mesh on the card against
+    the one-device count, in turns mesh, one device, one device, mesh."""
+    import numpy as np
+
+    from phylonium_tpu_torch.ops import pair_count
+    from phylonium_tpu_torch.parallel.distributed import (
+        LAST_COMM,
+        comm_account,
+        pair_counts_sharded,
+    )
+    from phylonium_tpu_torch.parallel.mesh import make_mesh
+    from phylonium_tpu_torch.utils import platform
+
+    n, length = states.shape
+    cells = shape[0] * shape[1]
+    label = f"{shape[0]}x{shape[1]} of {n} x {length}"
+    runs = []
+    with patched(platform, **local_cells(device, cells)):
+        mesh = make_mesh(shape, "cuda")
+        if mesh.backend != "local" or len(mesh.devices) != cells:
+            raise AssertionError(f"{label}: {mesh}")
+        for kind in ("mesh", "one device", "one device", "mesh"):
+            zero_counts()
+            t0 = time.perf_counter()
+            got = pair_counts_sharded(states, mesh) if kind == "mesh" else one_device()
+            wall = time.perf_counter() - t0
+            launches, plain = pair_count.KERNEL_LAUNCHES, pair_count.PLAIN_CALLS
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{label}: the {kind} count disagrees")
+            calls = cells if kind == "mesh" else 1
+            if launches != pair_count.LAUNCHES_PER_CALL * calls or plain:
+                raise AssertionError(f"{label}, {kind}: {launches} launches, "
+                                     f"{plain} plain calls")
+            run = {"kind": kind, "wall": wall, "launches": launches}
+            if kind == "mesh":
+                comm = comm_account(n, length, mesh)
+                if any(comm[f"measured_{k}"] != comm[f"predicted_{k}"] for k in _COMM_KEYS):
+                    raise AssertionError(f"{label}: bytes {comm}")
+                run["steps"] = dict(LAST_COMM["seconds"])
+            runs.append(run)
+    for run in runs:
+        steps = ", ".join(f"{k} {v:.4f}" for k, v in run.get("steps", {}).items())
+        print(f"  local mesh {label}, {cells} cells on {device}: == pair_counts_rows "
+              f"bit for bit; {run['kind']}: {run['launches']} pair-count launches, "
+              f"wall {run['wall']:.4f} s" + (f" (steps (s): {steps})" if steps else ""),
+              flush=True)
+    return {label: runs}
+
+
+def local_mesh_cli(device, files: list[str], reference: bytes) -> dict:
+    """Phase 24 (b): the port's CLI in this process with ``--mesh 2,2`` and
+    the local devices patched to four cells on the card: byte for byte
+    against the JAX package's host count, the run report's mesh "local",
+    K2 twice a cell, no plain call."""
+    from phylonium_tpu_torch.ops.pair_count import LAUNCHES_PER_CALL
+    from phylonium_tpu_torch.utils import platform
+
+    with patched(platform, **local_cells(device, 4)):
+        r = port_run(["--progress=never", "-v", "-v", "--device", "cuda", "--mesh", "2,2",
+                      *files], **_AUTO_ENV)
+    info, c = r["info"], r["counts"]
+    mesh = info.get("mesh", {})
+    if r["out"].encode() != reference:
+        raise AssertionError("the --mesh 2,2 local run differs from the JAX package's")
+    if (info["compare_carrier"] != "mesh" or mesh.get("backend") != "local"
+            or mesh["shape"] != [2, 2] or mesh["devices"] != [str(device)] * 4
+            or c["count_launches"] != 4 * LAUNCHES_PER_CALL or c["count_plain"]
+            or mesh["launches"] != c["count_launches"] or mesh["plain_calls"]
+            or any(mesh["comm"][f"measured_{k}"] != mesh["comm"][f"predicted_{k}"]
+                   for k in _COMM_KEYS) or "jax" in sys.modules):
+        raise AssertionError(f"the --mesh 2,2 local run: {c}, {info}")
+    steps = ", ".join(f"{k} {v:.4f}" for k, v in mesh["seconds"].items())
+    print(f"  --mesh 2,2 e2e, {len(files)} genomes on 4 local cells on the card, in "
+          f"process: byte-identical to the JAX package's host count; backend local, "
+          f"{c['count_launches']} pair-count launches, 0 plain calls; compare's steps "
+          f"(s): {steps}; prewarm {json.dumps(info.get('prewarm'))}; wall "
+          f"{r['wall']:.3f} s, phases {json.dumps(r['timings'])}", flush=True)
+    return {"launches": c["count_launches"], "wall": r["wall"], "steps": mesh["seconds"]}
+
+
+def local_mesh_auto(device, files: list[str], reference: bytes, tmp: str) -> dict:
+    """Phase 24 (c): 'auto' with the CUDA driver's count and the local
+    devices patched to two cells on the card, on phase 19's 600 x 1 Mbp
+    panel, in this process with the default route (no
+    ``PHYLONIUM_TPU_DEVD``, a socket of the phase's own) on an empty
+    store: the run counts on the (1, 2) local mesh by the serial route,
+    with no stream group, no shipper and no device server."""
+    from phylonium_tpu_torch.cli import main as port_main
+    from phylonium_tpu_torch.core.pipeline import LAST_RUN_INFO
+    from phylonium_tpu_torch.ops import pair_count, pileup_device
+    from phylonium_tpu_torch.utils import platform
+
+    sock = os.path.join(tmp, "local_mesh.sock")
+    buf = io.StringIO()
+    with patched(platform, cuda_device_count=lambda: 2, **local_cells(device, 2)), \
+            env_set(PHYLONIUM_TPU_DEVD=None, PHYLONIUM_TPU_DEVD_SOCK=sock, **_AUTO_ENV), \
+            contextlib.redirect_stdout(buf):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = port_main(["--progress=never", "--device", "cuda", *files])
+        wall = time.perf_counter() - t0
+        launches, plain = pair_count.KERNEL_LAUNCHES, pair_count.PLAIN_CALLS
+        builds = pileup_device.KERNEL_LAUNCHES + pileup_device.PLAIN_CALLS
+    info = json.loads(json.dumps(LAST_RUN_INFO))
+    mesh = info.get("mesh", {})
+    if rc != 0 or buf.getvalue().encode() != reference:
+        raise AssertionError(f"auto on two cells exited {rc} or differs from the JAX "
+                             "package's host count")
+    if (mesh.get("backend") != "local" or mesh["shape"] != [1, 2]
+            or launches != 2 * pair_count.LAUNCHES_PER_CALL or plain or builds
+            or info["stream_groups"] or "devd" in info or "early_ship" in info
+            or os.path.exists(sock + ".pid") or os.path.exists(sock)):
+        raise AssertionError(f"auto on two cells: {launches} launches, {plain} plain "
+                             f"calls, {builds} builds, {info}")
+    steps = ", ".join(f"{k} {v:.4f}" for k, v in mesh["seconds"].items())
+    print(f"  auto, {len(files)} genomes, two cards faked: the serial route onto the (1, 2) "
+          f"local mesh, byte-identical to the JAX package's host count; dispatch model "
+          f"{json.dumps(info.get('dispatch_model'))}; no stream group, no shipper, no "
+          f"device server; {launches} pair-count launches; compare's steps (s): {steps}; "
+          f"wall {wall:.3f} s, phases {json.dumps(info['timings'])}", flush=True)
+    return {"launches": launches, "wall": wall}
+
+
+def local_mesh_refused(files: list[str], tmp: str) -> float:
+    """Phase 24 (d): unpatched, in a child, ``--mesh 2,2`` on this machine's
+    one card exits 1 with the JAX package's sentence and prints nothing
+    on stdout. Returns the child's wall."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(IN_PROCESS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "phylonium_tpu_torch", "--progress=never", "--mesh", "2,2",
+         *files], capture_output=True, cwd=tmp, env=env, timeout=300,
+    )
+    wall = time.perf_counter() - t0
+    err = proc.stderr.decode(errors="replace")
+    if (proc.returncode != 1 or proc.stdout
+            or "--mesh 2,2 needs 4 devices; the runtime has 1" not in err):
+        raise AssertionError(f"--mesh 2,2 on one card exited {proc.returncode}, "
+                             f"stdout {proc.stdout[:200]!r}, stderr {err[-2000:]}")
+    print(f"  --mesh 2,2 unpatched on the one card: exit 1, empty stdout, "
+          f"\"{err.strip().splitlines()[-1][:160]}...\"; wall {wall:.3f} s", flush=True)
+    return wall
+
+
+def local_mesh(device, eco_files: list[str], eco_reference: bytes,
+               wide_files: list[str], wide_reference: bytes, tmp: str) -> dict:
+    """Phase 24: the local counting mesh, its parts (a)-(d) timed."""
+    parts, result = {}, {}
+    for name, run in (
+        ("a", lambda: local_mesh_counts(device)),
+        ("b", lambda: local_mesh_cli(device, eco_files, eco_reference)),
+        ("c", lambda: local_mesh_auto(device, wide_files, wide_reference, tmp)),
+        ("d", lambda: local_mesh_refused(eco_files, tmp)),
+    ):
+        t0 = time.perf_counter()
+        result[name] = run()
+        parts[name] = time.perf_counter() - t0
+    print(f"  phase 24 parts (s): {json.dumps(parts)}", flush=True)
+    return result
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3138,6 +3371,10 @@ def main(argv: list[str] | None = None) -> int:
             print(f"  {served} daemons served the script's phases; none is alive, and none "
                   "on the card's default socket is the script's", flush=True)
 
+        with phase("local counting mesh"):
+            local = local_mesh(device, eco_files, e2e["reference"], *auto["panel_600"],
+                               wide_dir)
+
     print(json.dumps({"kernels": [{
         "name": "pair_count",
         "route": "cuda",
@@ -3260,6 +3497,8 @@ def main(argv: list[str] | None = None) -> int:
         "max_abs_err_4x1": pod_cell["max_abs_err"],
         "prewarm_s": prewarm["seconds"],
         "prewarm_waited_s": prewarm["waited"],
+        "launches_local_mesh": local["b"]["launches"],
+        "launches_local_mesh_auto": local["c"]["launches"],
         "build_s": _build.BUILD_INFO["seconds"],
     }]}), flush=True)
     print(info["nvidia_smi"].splitlines()[0], flush=True)

@@ -83,10 +83,11 @@ def distance_matrix(
     one genome each. ``device``: torch device of the pair count.
     ``distance``: "jc" | "raw" | "ani". ``reference``: pin the reference
     genome by name (CLI ``-r``); ``two_pass``: recompute against the most
-    central genome (``-2``). ``mesh``: "R,C", count on a mesh of
-    torch.distributed ranks (``--mesh``): every rank of a world of R*C
-    ranks calls this function alike and gets the same result. Remaining
-    keywords mirror their CLI flags.
+    central genome (``-2``). ``mesh``: "R,C", count on an R x C mesh
+    (``--mesh``): ``R*C`` ranks, or ``R*C`` local cards in a process of
+    one rank. Every rank of a world of R*C ranks calls this function
+    alike and gets the same result. Remaining keywords mirror their CLI
+    flags.
 
     The run is the CLI's, in the caller's process: on a CUDA ``device``
     in a single process, a panel that 'auto' counting streams (more than

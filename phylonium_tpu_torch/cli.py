@@ -41,7 +41,8 @@ In a torch.distributed world of several ranks (started by the launcher,
 e.g. with ``parallel.multihost.initialize_distributed``, before ``main``
 runs), every rank runs the pipeline and only rank 0 prints the matrix and
 writes the run report; the others return the same code. ``--mesh R,C``
-needs a world of ``R * C`` ranks.
+needs a world of ``R * C`` ranks, or, in a process of one rank, ``R * C``
+local devices of ``--device``'s type (parallel/mesh.py).
 
 ``parse_args``, ``cleanup_names``, ``usage`` and ``version`` and their
 helpers are a copy of the JAX package's (phylonium_tpu/cli.py:73-353),
@@ -97,10 +98,11 @@ Options:
                        on --device), 'host' or 'numpy' (host counters)
       --map-backend=B  Mapping: 'native', 'python', 'hybrid' (host chain,
                        anchor extension on --device), or 'auto' (default)
-      --mesh=R,C       Count on an R x C mesh of torch.distributed ranks
-                       (a world of R*C ranks, one device each, started by
-                       the launcher); every rank maps its share of the
-                       queries, rank 0 prints
+      --mesh=R,C       Count on an R x C mesh: R*C ranks, or R*C local
+                       cards in a process of one rank (a world of R*C
+                       ranks, one device each, is started by the
+                       launcher; every rank maps its share of the
+                       queries, rank 0 prints)
       --checkpoint=DIR Reuse/persist anchor-mapping results in DIR
       --profile=DIR    Write a torch.profiler trace of the run to DIR
   -h, --help           This text

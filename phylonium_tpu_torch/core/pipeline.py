@@ -36,10 +36,20 @@ lists are exchanged (parallel/map_shard.py), as the JAX package's serial
 processes do, and the count runs on the ``('rows', 'cols')`` mesh of ranks
 (parallel/distributed.py): under ``--mesh R,C``, which needs a world of
 ``R * C`` ranks, or under 'auto' counting on the pod mesh (rows one a
-host). The single-rank streamed and low-memory paths and X2 yield to the
-mesh. A single process with several cards counts on its one ``--device``
-(the JAX package spans its local devices in a mesh); the matrix is the
-same.
+host). The single-rank streamed path and X2 yield to any mesh; the
+low-memory path yields to ``--mesh`` and to a world of several ranks, and
+keeps its one-device count on a process's several cards, as the JAX
+package's does.
+
+A single process with several local devices counts on a mesh of them, as
+the JAX package spans its local devices (parallel/mesh.py's local mesh,
+``counts_on_mesh``): under ``--mesh R,C`` the first ``R * C`` devices of
+``--device``'s type, and under 'auto' counting on a CUDA ``--device`` with
+more than one card (``utils.platform.cuda_device_count``) a ``(1, n)`` mesh
+of every card, after the dispatch model's host pick. Such a run, unless
+it takes the low-memory path, does not stream and takes no device
+server: the serial route packs each cell on the host and the count runs
+K2 on every card at once.
 
 Before the index, ``prewarm_device`` starts a thread that pays the
 card's one-time costs (``import torch``, the context, the kernel library,
@@ -125,7 +135,7 @@ from phylonium_tpu_torch.model.evo import EvoCounts
 from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, ROW_ALIGN
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.serve.client import devd_enabled, get_client
-from phylonium_tpu_torch.utils import calibration
+from phylonium_tpu_torch.utils import calibration, platform
 from phylonium_tpu_torch.utils.platform import (
     carrier,
     check_device,
@@ -170,11 +180,15 @@ def _mesh_shape(cfg: TorchRunConfig) -> tuple[int, int]:
 
 
 def _mesh_device_count(cfg: TorchRunConfig) -> int:
-    """Ranks the counting mesh spans (0 = the single-device path).
+    """Cells the counting mesh spans (0 = the single-device path).
 
-    As the JAX package's (phylonium_tpu/core/pipeline.py:556-565), with
-    ranks for devices: host counting takes no mesh; ``--mesh R,C`` spans
-    ``R * C``; otherwise a world of more than one rank.
+    As the JAX package's (phylonium_tpu/core/pipeline.py:556-565): host
+    counting takes no mesh; ``--mesh R,C`` spans ``R * C``; otherwise a
+    world of more than one rank spans its ranks, and a process of one rank
+    its cards where a CUDA ``--device`` has more than one. The cards are
+    the CUDA driver's count (``utils.platform.cuda_device_count``), which
+    makes no context and imports no torch; the CPU is one device, as the
+    JAX package's CPU is without its XLA flag.
     """
     if cfg.count_backend in ("numpy", "host"):
         return 0
@@ -182,28 +196,43 @@ def _mesh_device_count(cfg: TorchRunConfig) -> int:
         rows, cols = _mesh_shape(cfg)
         return rows * cols
     size, _ = world()
-    return size if size > 1 else 0
+    if size > 1:
+        return size
+    cards = platform.cuda_device_count() if device_type(cfg.device) == "cuda" else 0
+    return cards if cards > 1 else 0
 
 
 def counts_on_mesh(cfg: TorchRunConfig) -> bool:
-    """Will the count run on the mesh of ranks (JAX :741-770)? Under
-    ``--mesh`` spanning more than one rank, or 'auto' counting in a
-    world of several ranks."""
+    """Will a count on the device run on the mesh (JAX :741-800)? Under
+    ``--mesh`` spanning more than one cell, or 'auto' counting in a world
+    of several ranks or on a process's several cards. 'auto' asks the
+    dispatch model first (``pair_counts``)."""
     if cfg.mesh:
         return _mesh_device_count(cfg) > 1
-    return cfg.count_backend == "auto" and world()[0] > 1
+    return cfg.count_backend == "auto" and _mesh_device_count(cfg) > 1
 
 
 def check_mesh(cfg: TorchRunConfig) -> None:
-    """Raise ConfigError when ``--mesh R,C`` spans more than one rank and
-    the world does not hold exactly ``R * C`` ranks."""
+    """Raise ConfigError when ``--mesh R,C`` spans more than one cell and
+    the run cannot hold it: a world of several ranks that is not of
+    exactly ``R * C`` ranks, or a process of one rank with fewer than
+    ``R * C`` local devices of ``--device``'s type (JAX :632-635)."""
     if cfg.mesh and _mesh_device_count(cfg) > 1:
-        from phylonium_tpu_torch.parallel.mesh import needed_ranks_message
+        from phylonium_tpu_torch.parallel.multihost import (
+            needed_devices_message,
+            needed_ranks_message,
+        )
 
         shape = _mesh_shape(cfg)
         size, _ = world()
-        if shape[0] * shape[1] != size:
-            raise ConfigError(needed_ranks_message(shape, size))
+        if size > 1:
+            if shape[0] * shape[1] != size:
+                raise ConfigError(needed_ranks_message(shape, size))
+            return
+        local = len(platform.local_devices(cfg.device))
+        if shape[0] * shape[1] > local:
+            raise ConfigError(needed_devices_message(
+                shape, local, platform.parse_device(cfg.device).type))
 
 
 def map_queries(
@@ -330,15 +359,13 @@ def pair_counts(
 ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (substitutions, homologs), int64 [N, N].
 
-    numpy and host are the host counters (the port's copies of the JAX
-    package's); auto, device and pallas all count on ``cfg.device``
-    through the port, or on the mesh of ranks (``counts_on_mesh``), except
-    'auto' on a CUDA device where the dispatch model picks the host
-    (``_gate_picks_host``), as the JAX package's ``pair_counts`` does.
+    In the JAX package's order: numpy and host are the host counters (the
+    port's copies of the JAX package's), and so is 'auto' on a CUDA device
+    where the dispatch model picks the host (``_gate_picks_host``); then
+    the mesh (``counts_on_mesh``); else auto, device and pallas count on
+    ``cfg.device`` through the port.
     """
     backend = cfg.count_backend
-    if counts_on_mesh(cfg):
-        return _pair_counts_mesh(states, cfg)
     if backend == "numpy":
         from phylonium_tpu_torch.ops.match_table import pair_counts_numpy
 
@@ -349,6 +376,8 @@ def pair_counts(
 
         LAST_RUN_INFO["compare_carrier"] = "host"
         return pair_counts_host(states)
+    if counts_on_mesh(cfg):
+        return _pair_counts_mesh(states, cfg)
     from phylonium_tpu_torch.ops import pair_count
 
     device = resolve_device(cfg.device)
@@ -359,10 +388,13 @@ def pair_counts(
 def _pair_counts_mesh(
     states: np.ndarray, cfg: TorchRunConfig
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Count over the ('rows', 'cols') mesh of ranks (JAX :607-641).
+    """Count over the ('rows', 'cols') mesh (JAX :607-641): of ranks in a
+    world of several, else of this process's local devices.
 
     Every rank takes part; none retries or counts on the host alone, since
     a rank that left the collective would stall its peers (JAX :746-749).
+    On a local mesh a cell that fails fails the run, as the single-device
+    count does.
     """
     from phylonium_tpu_torch.parallel.distributed import pair_counts_sharded
     from phylonium_tpu_torch.parallel.mesh import make_mesh
@@ -376,19 +408,27 @@ def _pair_counts_mesh(
     else:
         mesh = make_pod_mesh(device=device)
     setup_s = time.perf_counter() - t0
+    before = _counters("pair_count")
     counts = pair_counts_sharded(states, mesh)
-    _report_mesh(mesh, *states.shape, setup_s)
+    _report_mesh(mesh, *states.shape, setup_s, before)
     return counts
 
 
-def _report_mesh(mesh, n: int, length: int, setup_s: float) -> None:
-    """LAST_RUN_INFO's account of a count on the mesh of ranks."""
+def _report_mesh(mesh, n: int, length: int, setup_s: float,
+                 before: tuple[int, int]) -> None:
+    """LAST_RUN_INFO's account of a count on the mesh: its kind
+    (``backend``: the world's, or "local"), each cell's device that this
+    process holds, the pair-count launches and plain calls since
+    ``before``, the bytes and the steps' host seconds."""
     from phylonium_tpu_torch.parallel.distributed import LAST_COMM, comm_account
 
+    launches, plain = _counters("pair_count")
     LAST_RUN_INFO["compare_carrier"] = "mesh"
     LAST_RUN_INFO["mesh"] = {
         "shape": list(mesh.shape), "rank": mesh.rank, "backend": mesh.backend,
-        "device": str(mesh.device), "shard_carrier": carrier(mesh.device),
+        "device": str(mesh.device), "devices": [str(d) for d in mesh.devices],
+        "shard_carrier": carrier(mesh.device),
+        "launches": launches - before[0], "plain_calls": plain - before[1],
         "comm": comm_account(n, length, mesh),
         # host seconds: the mesh's groups (made once a process), then the
         # steps of the sharded count
@@ -523,8 +563,10 @@ def should_stream(n: int, ref_len: int, cfg: TorchRunConfig,
     a CUDA ``--device`` (the JAX ``not cpu_pinned()``), where a live early
     shipper (the CLI already decided) or the models decide: the streamed
     model where the store holds a copy rate, else not where the dispatch
-    model picks the host. A single process counts on its one device, so
-    the JAX hand-off to a late multi-device mesh has no counterpart.
+    model picks the host; and not where the count runs on the process's
+    local mesh (JAX :969, ``_mesh_device_count``). The card count comes
+    from the CUDA driver before the run starts, so the JAX hand-off to a late
+    multi-device mesh (``_late_mesh_available``) has no counterpart.
     """
     env = os.environ.get("PHYLONIUM_TPU_STREAM", "")
     if env == "0":
@@ -548,11 +590,14 @@ def should_stream(n: int, ref_len: int, cfg: TorchRunConfig,
     # evaluated even where the shipper decides, for the run report
     win = _stream_predicts_win(n, ref_len, cfg)
     shipper = cfg._query_shipper
-    if shipper is not None and not shipper.cancelled:
-        return True
-    if win is None:
-        return not _auto_prefers_host(n, ref_len, cfg)
-    return win
+    if shipper is None or shipper.cancelled:
+        if win is None:
+            if _auto_prefers_host(n, ref_len, cfg):
+                return False
+        elif not win:
+            return False
+    # several cards: the local mesh owns the count
+    return _mesh_device_count(cfg) <= 1
 
 
 def should_stream_mp(cfg: TorchRunConfig, ref: ESAIndex | None, n: int) -> bool:
@@ -649,11 +694,23 @@ def _prewarm_plan(n: int, ref_len: int, total_bp: int,
     return count, build
 
 
-def _warm(device, count: bool, build: bool) -> dict[str, int]:
+def _mesh_cells(n: int, total_bp: int, cfg: TorchRunConfig) -> list | None:
+    """The local devices (``DeviceName``) whose cells a run of one rank
+    counts on, where its count runs on the local mesh; None otherwise.
+    The low-memory path counts on its one device."""
+    if world()[0] > 1 or not counts_on_mesh(cfg) or should_lowmem(n, total_bp, cfg):
+        return None
+    return platform.local_devices(cfg.device)[: _mesh_device_count(cfg)]
+
+
+def _warm(device, count: bool, build: bool, cells=()) -> dict[str, int]:
     """Pay the device's one-time costs: the CUDA context, the kernel
     library's load (a build where none is cached) and each kernel's lazy
     module load at its first launch, by one launch of the pair count and,
     with ``build``, of the pileup build on a one-row all-INVALID panel.
+    With ``cells``, the devices of a local mesh, the count is warmed on
+    each of them instead: its context and one K2 launch (non-symmetric,
+    as the mesh's cells count).
 
     The launches go through the kernels' own launch functions, not their
     wrappers, so that they stay out of the run's ``KERNEL_LAUNCHES``; on a
@@ -670,11 +727,16 @@ def _warm(device, count: bool, build: bool) -> dict[str, int]:
         _build.load()
     launches = {}
     if count:
-        if cuda:
-            pair_count._launch(panel, panel, True)
-        else:
-            match_matrix.cross_counts_reference(panel, panel)
-        launches["pair_count"] = pair_count.LAUNCHES_PER_CALL if cuda else 0
+        for target in dict.fromkeys(cells or [device]):
+            on = panel.to(target)
+            if target.type == "cuda":
+                pair_count._launch(on, on, not cells)
+                torch.cuda.synchronize(target)
+                launches["pair_count"] = (launches.get("pair_count", 0)
+                                          + pair_count.LAUNCHES_PER_CALL)
+            else:
+                match_matrix.cross_counts_reference(on, on)
+                launches.setdefault("pair_count", 0)
     if build:
         words, intervals, *overlay = (
             torch.from_numpy(a).to(device)
@@ -704,21 +766,22 @@ class DevicePrewarm:
     error, the run would only meet it again, so it is raised at once.
     """
 
-    def __init__(self, device, count: bool, build: bool):
+    def __init__(self, device, count: bool, build: bool, cells=()):
         self.seconds = 0.0
         self.launches: dict[str, int] = {}
         self._error: Exception | None = None
         self._joined = False
         self._thread = threading.Thread(
-            target=self._run, args=(device, count, build), daemon=True,
+            target=self._run, args=(device, count, build, cells), daemon=True,
             name="device-prewarm",
         )
         self._thread.start()
 
-    def _run(self, device, count: bool, build: bool) -> None:
+    def _run(self, device, count: bool, build: bool, cells) -> None:
         t0 = time.perf_counter()
         try:
-            self.launches = _warm(resolve_device(device), count, build)
+            mesh = {"cells": [resolve_device(str(d)) for d in cells]} if cells else {}
+            self.launches = _warm(resolve_device(device), count, build, **mesh)
         except Exception as e:  # noqa: BLE001 — raised by join()
             self._error = e
         finally:
@@ -748,7 +811,9 @@ def prewarm_device(n: int, ref_len: int, total_bp: int,
     (a rank of a world, whose launcher set the rank's device: CUDA's
     current device is a thread's own), the device is resolved here, on the
     caller's thread; otherwise no thread has set one, and the prewarm's
-    thread resolves the name, importing torch there. The CUDA kernels are
+    thread resolves the name, importing torch there. A count on the local
+    mesh is warmed on every card it spans (``_mesh_cells``), so that no
+    further card's context lands inside the compare. The CUDA kernels are
     not specialized to shapes, so the JAX prewarm's shape arguments have
     no counterpart."""
     if devd_route(n, ref_len, total_bp, cfg):
@@ -758,7 +823,9 @@ def prewarm_device(n: int, ref_len: int, total_bp: int,
         return None
     torch = loaded("torch")
     cuda_up = torch is not None and torch.cuda.is_initialized()
-    return DevicePrewarm(resolve_device(cfg.device) if cuda_up else cfg.device, *plan)
+    cells = _mesh_cells(n, total_bp, cfg) if plan[0] else None
+    return DevicePrewarm(resolve_device(cfg.device) if cuda_up else cfg.device, *plan,
+                         cells=cells or ())
 
 
 def _join(warm: DevicePrewarm | None) -> None:
@@ -931,10 +998,11 @@ def _pod_streamed(ref, threshold, queries, cfg, timings, warm) -> tuple:
     t0 = time.perf_counter()
     mesh = pod_mesh(device)
     setup_s = time.perf_counter() - t0
+    before = _counters("pair_count")
     counts, feeder = map_pileup_count_streamed_mp(
         ref, threshold, queries, cfg, mesh, timings
     )
-    _report_mesh(mesh, len(queries), len(ref.subject), setup_s)
+    _report_mesh(mesh, len(queries), len(ref.subject), setup_s, before)
     LAST_RUN_INFO["map_carrier"] = "native"
     LAST_RUN_INFO["map_rounds"] = 0
     LAST_RUN_INFO["stream_groups"] = feeder.groups
@@ -998,6 +1066,7 @@ def process(
         lowmem = LAST_RUN_INFO.get("lowmem")
         ship = LAST_RUN_INFO.get("early_ship")
         devd = LAST_RUN_INFO.get("devd")
+        mesh = LAST_RUN_INFO.get("mesh")
         print(
             f"phase timings ({ref.backend_name} index, "
             f"{LAST_RUN_INFO['map_carrier']} mapped, "
@@ -1022,6 +1091,11 @@ def process(
                f"{devd['launches']['count_plain']} plain calls there, "
                f"count {LAST_RUN_INFO['devd_count_s']:.3f}s"
                if devd else "")
+            + (f"; mesh {mesh['shape'][0]}x{mesh['shape'][1]} {mesh['backend']}, cells on "
+               f"{','.join(mesh['devices'])}, {mesh['launches']} pair-count launches, "
+               f"{mesh['plain_calls']} pair-count plain calls, steps "
+               + " ".join(f"{k}={v:.3f}s" for k, v in mesh["seconds"].items())
+               if mesh else "")
             + f"; {cfg.count_backend} counts, "
             f"{LAST_RUN_INFO['compare_carrier']} carried, "
             f"{LAST_RUN_INFO['kernel_launches']} kernel launches, "

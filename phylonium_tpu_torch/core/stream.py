@@ -45,7 +45,10 @@ them in the server: ``take`` gives a ``query_ship.DevdGroup``) as one
 built (``_drain_devd``, the port of the JAX feeder's). Each feeder sends
 a generation of its own, from a process-wide counter, so that the second
 pass of ``-2`` (the same run id, its pieces still resident) starts a
-fresh panel in the server.
+fresh panel in the server. With ``PHYLONIUM_TPU_DEBUG`` set, the feeder
+prints the JAX feeder's trace lines to stderr: ``row feeder: group @LO
+prep T s request T s`` for each group it sends, and ``row feeder: finish
+wire T s (daemon S s)``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from __future__ import annotations
 import itertools
 import os
 import queue
+import sys
 import threading
 import time
 
@@ -75,6 +79,12 @@ MAX_BACKLOG = 2
 _GENERATIONS = itertools.count(1)
 
 DEFAULT_GROUP_ROWS = 128
+
+
+def _trace(msg: str) -> None:
+    """A PHYLONIUM_TPU_DEBUG line on stderr, as the JAX feeder's."""
+    if os.environ.get("PHYLONIUM_TPU_DEBUG"):
+        print(f"row feeder: {msg}", file=sys.stderr)
 
 
 def effective_group_rows(n: int) -> int:
@@ -272,6 +282,7 @@ class DeviceRowFeeder:
                 self.repacked += 1
         header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
                   "rows": len(queries), "n": self.n, "ref_len": self.ref_len}
+        t0 = time.perf_counter()
         if resident is None:
             words, *rest = prepare_group(queries, homologies, self.ref_len)
             arrays = [*rest, words]
@@ -281,8 +292,10 @@ class DeviceRowFeeder:
                 queries, homologies, self.ref_len,
                 resident=(None, resident.bases, resident.seps),
             )
+        t1 = time.perf_counter()
         client.request(header, arrays)
         self.groups += 1
+        _trace(f"group @{lo} prep {t1 - t0:.2f}s request {time.perf_counter() - t1:.2f}s")
 
     def feed(self, queries: list, homologies: list) -> None:
         """Enqueue the next ``len(queries)`` genomes, in order, as one
@@ -353,6 +366,7 @@ class DeviceRowFeeder:
             {"op": "finish", "run": self.run_id, "gen": self.gen, "n": self.n}
         )
         self.devd_wait_s = time.perf_counter() - t0
+        _trace(f"finish wire {self.devd_wait_s:.2f}s (daemon {reply.get('seconds')}s)")
         self.devd_count_s = reply["seconds"]
         self.devd_reply = reply
         return subs.astype(np.int64), homs.astype(np.int64)

@@ -40,6 +40,7 @@ from phylonium_tpu_torch.ops.anchor_extend import (
     pack_bits,
     words_per_row,
 )
+from phylonium_tpu_torch.utils import platform
 
 # launches of the shard kernel, and calls of the plain version on the CPU
 # route, since the last reset (callers set them to 0)
@@ -71,10 +72,8 @@ def shard_text(text: np.ndarray, n_shards: int, tile: int) -> np.ndarray:
 
 def shard_devices(device: torch.device) -> list[torch.device]:
     """The local devices of ``device``'s type, one shard each: every CUDA
-    card of this process, or the one CPU."""
-    if device.type == "cuda":
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device(device.type)]
+    card of this process, or the one CPU (``utils.platform.local_devices``)."""
+    return [torch.device(str(d)) for d in platform.local_devices(device)]
 
 
 def place(tensors, devices: list[torch.device]) -> list[torch.Tensor]:

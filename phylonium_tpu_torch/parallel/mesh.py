@@ -1,4 +1,4 @@
-"""The counting mesh: a ('rows', 'cols') grid of torch.distributed ranks.
+"""The counting mesh: a ('rows', 'cols') grid of ranks or of local devices.
 
 The port of the JAX package's phylonium_tpu/parallel/mesh.py. Its axes are
 the JAX package's:
@@ -8,14 +8,25 @@ the JAX package's:
 - ``rows``: genome blocks (row blocks of the output matrix), the axis that
   scales with N. Each cell gathers the other blocks of its column shard.
 
-JAX spans a mesh over devices; here a cell is a rank (one process, one
-device), so an ``R x C`` mesh is a world of exactly ``R * C`` ranks. Rank
-``r`` holds the cell ``(r // C, r % C)`` and the device
-``cuda:{local_rank % device_count}`` or the CPU. Each rank builds two
-process groups: ``rows_group``, the R ranks of its column (the all_gather
-runs over it), and ``cols_group``, the C ranks of its row (the all_reduce
-runs over it). Every rank creates every group, in the same order, as
-``dist.new_group`` requires.
+JAX spans a mesh over devices. The port has two kinds:
+
+- In a torch.distributed world of several ranks a cell is a rank (one
+  process, one device), so an ``R x C`` mesh is a world of exactly
+  ``R * C`` ranks. Rank ``r`` holds the cell ``(r // C, r % C)`` and the
+  device ``cuda:{local_rank % device_count}`` or the CPU. Each rank builds
+  two process groups: ``rows_group``, the R ranks of its column (the
+  all_gather runs over it), and ``cols_group``, the C ranks of its row
+  (the all_reduce runs over it). Every rank creates every group, in the
+  same order, as ``dist.new_group`` requires.
+- In a world of one rank, an ``R x C`` mesh with ``R * C > 1`` spans the
+  first ``R * C`` local devices of the device's type
+  (``utils.platform.local_devices``), cell ``k = i * C + c`` on device
+  ``k``, as JAX's ``make_mesh(shape, devices=jax.devices()[:R*C])``
+  does. Its backend is ``"local"``: the process holds every cell and
+  moves blocks between its devices with copies, not collectives
+  (parallel/distributed.py). Fewer local devices than cells is a
+  ConfigError; cells share a device only where a caller patches the
+  helper.
 """
 
 from __future__ import annotations
@@ -28,9 +39,12 @@ import torch.distributed as dist
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.parallel.multihost import (
     native_stdout_to_stderr,
+    needed_devices_message,
+    needed_ranks_message,
     node_info,
     world,
 )
+from phylonium_tpu_torch.utils import platform
 
 # meshes built in this process, by (shape, device): new groups are made
 # once, and every rank asks for the same meshes in the same order
@@ -39,27 +53,24 @@ _MESHES: dict = {}
 
 @dataclass(frozen=True)
 class Mesh:
+    """A counting mesh. ``rank`` is this process's rank in its world and
+    ``cell`` the cell it counts, ``(rank // C, rank % C)``; ``device`` is
+    that cell's device. On a mesh of ranks ``devices`` is ``(device,)``.
+    On a local mesh (``backend == "local"``) the process, rank 0 of a
+    world of one, holds every cell: ``devices[k]`` is the device of cell
+    ``divmod(k, C)``, and ``cell`` and ``device`` are cell (0, 0)'s."""
+
     shape: tuple[int, int]  # (rows, cols)
     rank: int
     device: torch.device
     backend: str | None  # None: a 1 x 1 mesh outside any world
     rows_group: object = None  # the ranks of this rank's column
     cols_group: object = None  # the ranks of this rank's row
+    devices: tuple = ()  # the devices of the cells this process holds
 
     @property
     def cell(self) -> tuple[int, int]:
         return divmod(self.rank, self.shape[1])
-
-
-def needed_ranks_message(shape: tuple[int, int], size: int) -> str:
-    rows, cols = shape
-    return (
-        f"--mesh {rows},{cols} needs {rows * cols} ranks; the torch.distributed "
-        f"world has {size}. Launch {rows * cols} ranks, e.g. `torchrun "
-        f"--nproc-per-node {rows * cols} -m phylonium_tpu_torch ...` with a "
-        "launcher that calls "
-        "phylonium_tpu_torch.parallel.multihost.initialize_distributed"
-    )
 
 
 def _rank_device(device) -> torch.device:
@@ -75,16 +86,33 @@ def _rank_device(device) -> torch.device:
     return torch.device("cuda", node_info()["local_rank"] % torch.cuda.device_count())
 
 
-def make_mesh(shape: tuple[int, int] | None = None, device="cuda") -> Mesh:
-    """The mesh of this rank (collective: every rank calls it alike).
+def _local_mesh(shape: tuple[int, int], device) -> Mesh:
+    """The ``shape`` mesh over this process's first ``R * C`` local
+    devices of ``device``'s type."""
+    rows, cols = shape
+    local = platform.local_devices(device)
+    if rows * cols > len(local):
+        raise ConfigError(needed_devices_message(
+            shape, len(local), platform.parse_device(device).type))
+    devices = tuple(_rank_device(str(name)) for name in local[: rows * cols])
+    return Mesh(shape, 0, devices[0], "local", devices=devices)
 
-    ``shape`` defaults to ``(1, world size)``, as JAX's defaults to
-    ``(1, n)``: the column axis is the one that divides the work at any N.
+
+def make_mesh(shape: tuple[int, int] | None = None, device="cuda") -> Mesh:
+    """The mesh of this process (collective in a world of several ranks:
+    every rank calls it alike).
+
+    ``shape`` defaults to ``(1, n)``, as JAX's does: ``n`` is the world's
+    size, or in a world of one rank the local devices of ``device``'s
+    type; the column axis is the one that divides the work at any N. In a
+    world of one rank a mesh of more than one cell is a local mesh.
     """
     size, rank = world()
     if shape is None:
-        shape = (1, size)
+        shape = (1, size if size > 1 else len(platform.local_devices(device)))
     rows, cols = (int(x) for x in shape)
+    if size == 1 and rows >= 1 and cols >= 1 and rows * cols > 1:
+        return _local_mesh((rows, cols), device)
     if rows < 1 or cols < 1 or rows * cols != size:
         raise ConfigError(needed_ranks_message((rows, cols), size))
     device = _rank_device(device)
@@ -92,7 +120,7 @@ def make_mesh(shape: tuple[int, int] | None = None, device="cuda") -> Mesh:
     if key in _MESHES:
         return _MESHES[key]
     if not dist.is_initialized():
-        mesh = Mesh((1, 1), 0, device, None)
+        mesh = Mesh((1, 1), 0, device, None, devices=(device,))
     else:
         backend = dist.get_backend()
         if backend == "nccl" and device.type != "cuda":
@@ -112,6 +140,7 @@ def make_mesh(shape: tuple[int, int] | None = None, device="cuda") -> Mesh:
                 g = dist.new_group([i * cols + c for c in range(cols)], timeout=TIMEOUT)
                 if i == my_row:
                     groups["cols"] = g
-        mesh = Mesh((rows, cols), rank, device, backend, groups["rows"], groups["cols"])
+        mesh = Mesh((rows, cols), rank, device, backend, groups["rows"], groups["cols"],
+                    devices=(device,))
     _MESHES[key] = mesh
     return mesh

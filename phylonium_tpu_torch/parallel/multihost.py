@@ -3,7 +3,10 @@
 The port of the JAX package's phylonium_tpu/parallel/multihost.py. JAX
 runs one process per host under ``jax.distributed`` and spans its mesh
 over the devices of all of them; PyTorch's idiom is one process per
-device, so here a mesh cell is a rank of a ``torch.distributed`` world.
+device, so in a ``torch.distributed`` world of several ranks a mesh cell
+is a rank. A process of one rank with several local devices spans them
+instead (parallel/mesh.py's local mesh), as the JAX package spans its
+local devices: :func:`make_pod_mesh` is then ``(1, n)`` over them.
 
 The launcher starts the world with :func:`initialize_distributed` (or
 ``dist.init_process_group`` itself) before it calls the CLI or the API;
@@ -177,13 +180,50 @@ def initialize_distributed(
         torch.cuda.set_device(info["local_rank"] % torch.cuda.device_count())
 
 
+def _launch_advice(ranks: int) -> str:
+    return (
+        f"Launch {ranks} ranks, e.g. `torchrun --nproc-per-node {ranks} -m "
+        "phylonium_tpu_torch ...` with a launcher that calls "
+        "phylonium_tpu_torch.parallel.multihost.initialize_distributed"
+    )
+
+
+def needed_ranks_message(shape: tuple[int, int], size: int) -> str:
+    """Why a world of ``size`` ranks (more than one) cannot hold the
+    ``shape`` mesh of ranks."""
+    rows, cols = shape
+    return (
+        f"--mesh {rows},{cols} needs {rows * cols} ranks; the torch.distributed "
+        f"world has {size}. {_launch_advice(rows * cols)}"
+    )
+
+
+def needed_devices_message(shape: tuple[int, int], local: int, kind: str) -> str:
+    """Why a process of one rank, with ``local`` devices of type ``kind``,
+    cannot hold the ``shape`` mesh of local devices: the JAX package's
+    sentence (phylonium_tpu/core/pipeline.py:632-635), then the port's
+    other way to the mesh, a world of ranks."""
+    rows, cols = shape
+    return (
+        f"--mesh {rows},{cols} needs {rows * cols} devices; the runtime has "
+        f"{local} (this process's local {kind} devices, in a world of one "
+        f"rank). {_launch_advice(rows * cols)}"
+    )
+
+
 def make_pod_mesh(rows: int | None = None, device="cuda"):
     """A ('rows', 'cols') mesh over every rank of the world; ``rows``
     defaults to the host count, so that the all_gather rides the links
-    inside a host and only the count's reduction crosses hosts."""
+    inside a host and only the count's reduction crosses hosts. In a world
+    of one rank, ``(1, n)`` over the process's ``n`` local devices of
+    ``device``'s type (``utils.platform.local_devices``), as the JAX
+    package's pod mesh is ``(process_count() = 1, n)`` over its devices."""
     from phylonium_tpu_torch.parallel.mesh import make_mesh
+    from phylonium_tpu_torch.utils import platform
 
     size, _ = world()
+    if size == 1:
+        return make_mesh((1, len(platform.local_devices(device))), device)
     if rows is None:
         rows = max(1, node_info()["nodes"])
     while size % rows:

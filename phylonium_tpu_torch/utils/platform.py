@@ -92,6 +92,19 @@ def cuda_device_count() -> int:
     return count.value
 
 
+def local_devices(name) -> list[DeviceName]:
+    """The devices a process of one rank can span, of ``name``'s type:
+    every card the CUDA driver finds (``cuda_device_count``), or the one
+    CPU, as the JAX package's ``jax.devices()`` holds one CPU device
+    without its XLA flag. The one source of the local counting mesh's
+    cells (parallel/mesh.py) and of X5's shards
+    (``ops.anchor_extend_sharded.shard_devices``); tests patch it to put
+    several cells on one device. Imports no torch and makes no context."""
+    if parse_device(name).type == "cuda":
+        return [DeviceName("cuda", i) for i in range(cuda_device_count())]
+    return [DeviceName("cpu")]
+
+
 def check_device(name) -> DeviceName:
     """``"cuda"``, ``"cuda:N"`` or ``"cpu"`` -> that device, checked
     against the CUDA driver's card count without torch and without a

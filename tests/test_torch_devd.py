@@ -14,6 +14,10 @@ their own and stop it by its pidfile. Held against the JAX package:
   cache and ships 0 bytes; ``-2`` builds pass 2 from the pieces pass 1
   parked, under a new generation; the shipper parks a panel once, and a
   second shipper of it ships 0 bytes; an op the server lacks is refused;
+- ``PHYLONIUM_TPU_DEBUG``: the shipper and the feeder print the JAX
+  package's devd trace lines to stderr (connected or unavailable, each
+  piece and group, the finish's wire time), none without the variable,
+  and the matrix is the same;
 - a slow build never stalls ``group`` replies; cancel; stale pass-1
   builds dropped; the lock wait and the socket wait within one deadline;
   feeder generations never repeat;
@@ -401,6 +405,52 @@ def test_two_pass_reuses_pass_one_pieces(tmp_path, devd, monkeypatch):
     assert len(runs) == 1  # one run id: its pieces stay resident
     for info in passes:
         assert info["early_ship"]["taken"] == 3 and info["early_ship"]["repacked"] == 0
+
+
+_TRACES = (r"query shipper \[\+\d+\.\d\ds\]: device server connected",
+           r"query shipper \[\+\d+\.\d\ds\]: group 0 pack \d+\.\d\ds ship \d+\.\d MB in ",
+           r"query shipper \[\+\d+\.\d\ds\]: group 2 cache hit \(0 bytes\)",
+           r"row feeder: group @0 prep \d+\.\d\ds request \d+\.\d\ds",
+           r"row feeder: finish wire \d+\.\d\ds \(daemon \d+\.\d+(e-\d+)?s\)")
+
+
+def test_debug_traces_of_the_devd_branches(tmp_path, devd, monkeypatch):
+    import re
+
+    files = write_fasta_panel(tmp_path, 10, 2500, seed=113)
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM_GROUP", "4")
+    monkeypatch.delenv("PHYLONIUM_TPU_DEBUG", raising=False)
+    rc0, quiet, quiet_err = _run(["--device", "cpu", *files])
+    _reset_client()
+    monkeypatch.setenv("PHYLONIUM_TPU_DEBUG", "1")
+    rc1, traced, err = _run(["--device", "cpu", *files])
+    assert rc0 == rc1 == 0 and traced == quiet
+    # the quiet run parked every piece: the traced run's are all hits
+    hits = [line for line in err.splitlines() if "cache hit" in line]
+    assert len(hits) == 3
+    for pattern in _TRACES[:1] + _TRACES[2:]:
+        assert re.search(pattern, err), (pattern, err)
+    assert "query shipper" not in quiet_err and "row feeder" not in quiet_err
+    # a cold panel: each piece packed and shipped
+    cold = write_fasta_panel(tmp_path, 10, 2500, seed=114)
+    _reset_client()
+    rc, out, err = _run(["--device", "cpu", *cold])
+    assert rc == 0 and re.search(_TRACES[1], err), err
+    assert len(re.findall(r"row feeder: group @\d+ ", err)) == 3
+    assert out == _jax_run(cold)
+
+
+def test_debug_trace_of_an_unavailable_server(tmp_path, own_socket, monkeypatch):
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD_SPAWN_WAIT", "1")
+    monkeypatch.setenv("PHYLONIUM_TPU_DEBUG", "1")
+    monkeypatch.setattr(DevdClient, "spawn_daemon", lambda self: None)
+    files = write_fasta_panel(tmp_path, 7, 2200, seed=115)
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM_GROUP", "3")
+    rc, out, err = _run(["--device", "cpu", *files])
+    assert rc == 1 and out == ""
+    assert "query shipper [+" in err and "]: device server unavailable (DevdError(" in err
 
 
 def test_drain_parks_the_whole_panel(rng, devd):

@@ -14,6 +14,9 @@ Pytest's own process has loaded torch, so every case runs in a child:
 - a default ``auto`` run with the CUDA driver's count patched to one card,
   on a panel that the static rule sends to the host: no torch, no CUDA
   context, the JAX CLI's bytes;
+- with two cards faked (where 'auto' would count on the local mesh), a
+  ``--count-backend host`` run and an ``auto`` run the static rule sends
+  to the host, under the guard: no torch, the JAX CLI's bytes;
 - a device-server client run on the CPU (one daemon for the module): no
   torch in the CLI process, the same bytes as the in-process run;
 - a ``--device cpu`` run under the guard: its matrix, then exit 70.
@@ -36,16 +39,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the entry point of `python -m phylonium_tpu_torch`, with cli.main
 # wrapped to write what the run loaded into argv[1] just before the entry
-# point's guard and os._exit; argv[2] "1" patches the CUDA driver's count
-# to one card
+# point's guard and os._exit; argv[2], where not "0", patches the CUDA
+# driver's count to that many cards
 _CHILD = """
 import json, runpy, sys
 report, one_card, *args = sys.argv[1:]
 sys.argv = ["phylonium_tpu_torch", *args]
 import phylonium_tpu_torch.cli as cli
 from phylonium_tpu_torch.utils import platform
-if one_card == "1":
-    platform.cuda_device_count = lambda: 1
+if one_card != "0":
+    platform.cuda_device_count = lambda: int(one_card)
 main = cli.main
 def recorded(argv=None):
     rc = main(argv)
@@ -75,12 +78,12 @@ def _env(tmp, **extra) -> dict:
     return env
 
 
-def _port(args, tmp, one_card=False, **extra):
+def _port(args, tmp, one_card=False, cards=0, **extra):
     report = tmp / "child.json"
     if report.exists():
         report.unlink()
     r = subprocess.run(
-        [sys.executable, "-c", _CHILD, str(report), "1" if one_card else "0",
+        [sys.executable, "-c", _CHILD, str(report), str(cards or int(one_card)),
          "--progress=never", *args],
         capture_output=True, cwd=tmp, env=_env(tmp, **extra), timeout=300,
     )
@@ -159,6 +162,18 @@ def test_auto_run_routed_to_the_host_makes_no_context(small_panel, tmp_path):
     assert info["dispatch_model"]["link_mb_s"] is None
     assert info["cuda_initialized"] is False and "prewarm" not in info
     assert info["kernel_launches"] == 0 and info["plain_calls"] == 0
+    assert r.stdout == _jax(small_panel, tmp_path)
+
+
+@pytest.mark.parametrize("flags", [["--count-backend", "host"], []], ids=["host", "auto"])
+def test_two_cards_host_count_never_imports_torch(flags, small_panel, tmp_path):
+    r, child = _port([*flags, *small_panel], tmp_path, cards=2,
+                     PHYLONIUM_TPU_EXPECT_NO_TORCH="1")
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    assert child["rc"] == 0 and not child["torch"] and not child["cuda_initialized"]
+    info = child["info"]
+    assert info["compare_carrier"] == "host" and "mesh" not in info
+    assert "prewarm" not in info
     assert r.stdout == _jax(small_panel, tmp_path)
 
 

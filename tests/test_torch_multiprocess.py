@@ -129,7 +129,7 @@ def test_mesh_in_one_process_is_a_config_error(files, capsys):
     paths, _ = files
     assert main(["--progress=never", "--device", "cpu", "--mesh", "2,2", *paths]) == 1
     err = capsys.readouterr().err
-    assert "--mesh 2,2 needs 4 ranks" in err
+    assert "--mesh 2,2 needs 4 devices; the runtime has 1" in err
     assert "torchrun --nproc-per-node 4" in err
 
 
@@ -138,7 +138,7 @@ def test_api_mesh_in_one_process_is_a_config_error(files):
     from phylonium_tpu_torch.config import ConfigError
 
     paths, _ = files
-    with pytest.raises(ConfigError, match="needs 4 ranks"):
+    with pytest.raises(ConfigError, match="needs 4 devices; the runtime has 1"):
         distance_matrix(paths, device="cpu", mesh="2,2")
     # a 1 x 1 mesh is the one-device path
     result = distance_matrix(paths, device="cpu", mesh="1,1")

@@ -203,6 +203,6 @@ def test_a_mesh_of_another_size_than_the_world_is_a_config_error():
     from phylonium_tpu_torch.config import ConfigError
     from phylonium_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(ConfigError, match="--mesh 2,2 needs 4 ranks; the torch.distributed world has 1"):
+    with pytest.raises(ConfigError, match="--mesh 2,2 needs 4 devices; the runtime has 1"):
         make_mesh((2, 2), "cpu")
     assert make_mesh(None, "cpu").shape == (1, 1)
