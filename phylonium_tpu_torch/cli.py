@@ -25,7 +25,10 @@ another device, poisoned, a failed build, a timeout) ends the run with
 exit 1 and no matrix.
 ``--profile=DIR`` writes a ``torch.profiler`` trace of the pipeline
 (both passes of ``-2``) into DIR, and ``PHYLONIUM_TPU_RUN_REPORT=FILE``
-writes the run's ``LAST_RUN_INFO`` as JSON after the matrix.
+writes the run's ``LAST_RUN_INFO`` as JSON after the matrix, with the
+run's spans (utils/profile.py) under ``spans``: ``run`` from ``main``'s
+start, ``options`` (the arguments, the checks, the shipper's start),
+``read``, ``pick``, ``process`` (each pass) and ``print``.
 
 This module, and every module it imports at the top, loads without torch.
 A run imports torch only where it reaches a device step (a device count,
@@ -55,6 +58,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -72,9 +76,8 @@ from phylonium_tpu_torch.io.phylip import print_matrix
 from phylonium_tpu_torch.native import build as native_build
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.serve.client import DevdError, devd_enabled
-from phylonium_tpu_torch.utils import calibration
+from phylonium_tpu_torch.utils import calibration, profile
 from phylonium_tpu_torch.utils.platform import check_device
-from phylonium_tpu_torch.utils.profile import profiled
 
 USAGE = f"""Usage: {PROG} [OPTIONS] FILES...
 \tEach FASTA file is one genome (multi-contig files are fine).
@@ -416,11 +419,13 @@ def _split_device(argv: list[str]) -> tuple[str, list[str]] | None:
     return device, rest
 
 
-def _read_all(file_names: list[str], workers: int, compact: bool, shipper=None):
+def _read_all(file_names: list[str], workers: int, compact: bool, shipper=None,
+              read=None):
     """Read and join every genome, in order, a bounded few files ahead;
     with ``compact``, 2-bit compact each one as it arrives; hand each to
     ``shipper`` in query order (compacted first: the shipper then works
-    from the per-genome packs)."""
+    from the per-genome packs). ``read``, the read's span, gets the
+    files, the bases and the seconds spent waiting on the read pool."""
 
     def joined(genome):
         seq = join(genome)
@@ -433,15 +438,28 @@ def _read_all(file_names: list[str], workers: int, compact: bool, shipper=None):
                 shipper.add(seq.as_array())
         return seq
 
+    blocked = 0
     with ThreadPoolExecutor(max_workers=workers) as pool:
         pending: deque = deque()
         queries = []
+
+        def next_genome():
+            nonlocal blocked
+            t = time.time_ns()
+            genome = pending.popleft().result()
+            blocked += time.time_ns() - t
+            return genome
+
         for name in file_names:
             pending.append(pool.submit(read_genome, name))
             if len(pending) >= 2 * workers:
-                queries.append(joined(pending.popleft().result()))
+                queries.append(joined(next_genome()))
         while pending:
-            queries.append(joined(pending.popleft().result()))
+            queries.append(joined(next_genome()))
+    if read is not None:
+        read.note("files", len(file_names))
+        read.note("bases", sum(len(q) for q in queries))
+        read.note("blocked_s", blocked / 1e9)
     return queries
 
 
@@ -480,6 +498,7 @@ def _start_shipper(file_names: list[str], cfg: TorchRunConfig, lowmem: bool):
 
 
 def main(argv: list[str] | None = None) -> int:
+    began = time.time_ns()
     if argv is None:
         argv = sys.argv[1:]
     split = _split_device(argv)
@@ -489,50 +508,58 @@ def main(argv: list[str] | None = None) -> int:
     device, argv = split
     cfg, file_names = parse_args(argv)
     cfg.device = device
+    with profile.run(cfg, began):
+        return _main(cfg, file_names, began)
 
-    try:
-        check_mesh(cfg)
-        devd_enabled(cfg.device)  # refused in a world of several ranks
-        if (cfg.count_backend not in ("numpy", "host")
-                or cfg.map_backend == "hybrid"):
-            check_device(cfg.device)  # fail before any work
-    except ConfigError as e:
-        print(f"{PROG}: {e}", file=sys.stderr)
-        return 1
 
-    if cfg.print_positions and os.path.exists(cfg.refpos_file_name):
-        print(
-            f"{PROG}: output file '{cfg.refpos_file_name}' already exists",
-            file=sys.stderr,
-        )
-        return 1
+def _main(cfg: TorchRunConfig, file_names: list[str], began: int) -> int:
+    """The run after its arguments: the checks and the shipper's start
+    (the ``options`` span), then ``_run``; the shipper is stopped on the
+    way out."""
+    with profile.span("options", start=began):
+        try:
+            check_mesh(cfg)
+            devd_enabled(cfg.device)  # refused in a world of several ranks
+            if (cfg.count_backend not in ("numpy", "host")
+                    or cfg.map_backend == "hybrid"):
+                check_device(cfg.device)  # fail before any work
+        except ConfigError as e:
+            print(f"{PROG}: {e}", file=sys.stderr)
+            return 1
 
-    if cfg.reference_name:
-        file_names = cleanup_names(cfg.reference_name, file_names)
-
-    if len(file_names) < 2:
-        sys.stderr.write(USAGE)
-        return 1
-
-    if cfg.threads:
-        from phylonium_tpu_torch.native import num_procs, set_threads
-
-        if cfg.threads > num_procs():
-            cfg.warn(
-                "The number of threads to be used, is greater then the "
-                f"number of available processors; Ignoring -t "
-                f"{cfg.threads} argument."
+        if cfg.print_positions and os.path.exists(cfg.refpos_file_name):
+            print(
+                f"{PROG}: output file '{cfg.refpos_file_name}' already exists",
+                file=sys.stderr,
             )
-            cfg.threads = 0
-        else:
-            set_threads(cfg.threads)
+            return 1
 
-    lowmem = _predicts_lowmem(file_names, cfg)
-    try:
-        cfg._query_shipper = _start_shipper(file_names, cfg, lowmem)
-    except OSError as e:
-        print(f"{PROG}: {e.filename}: {e.strerror}", file=sys.stderr)
-        return e.errno or 1
+        if cfg.reference_name:
+            file_names = cleanup_names(cfg.reference_name, file_names)
+
+        if len(file_names) < 2:
+            sys.stderr.write(USAGE)
+            return 1
+
+        if cfg.threads:
+            from phylonium_tpu_torch.native import num_procs, set_threads
+
+            if cfg.threads > num_procs():
+                cfg.warn(
+                    "The number of threads to be used, is greater then the "
+                    f"number of available processors; Ignoring -t "
+                    f"{cfg.threads} argument."
+                )
+                cfg.threads = 0
+            else:
+                set_threads(cfg.threads)
+
+        lowmem = _predicts_lowmem(file_names, cfg)
+        try:
+            cfg._query_shipper = _start_shipper(file_names, cfg, lowmem)
+        except OSError as e:
+            print(f"{PROG}: {e.filename}: {e.strerror}", file=sys.stderr)
+            return e.errno or 1
     try:
         return _run(cfg, file_names, lowmem)
     finally:
@@ -543,12 +570,13 @@ def main(argv: list[str] | None = None) -> int:
 
 def _run(cfg: TorchRunConfig, file_names: list[str], lowmem: bool) -> int:
     """Read, pick the reference, run the pipeline (twice with ``-2``),
-    print the matrix and the run report."""
+    print the matrix and the run report, each in a span of its own."""
     try:
-        queries = _read_all(
-            file_names, max(cfg.threads or min(8, len(file_names)), 1),
-            lowmem, cfg._query_shipper,
-        )
+        with profile.span("read") as read:
+            queries = _read_all(
+                file_names, max(cfg.threads or min(8, len(file_names)), 1),
+                lowmem, cfg._query_shipper, read,
+            )
     except OSError as e:
         print(f"{PROG}: {e.filename}: {e.strerror}", file=sys.stderr)
         return e.errno or 1
@@ -556,16 +584,18 @@ def _run(cfg: TorchRunConfig, file_names: list[str], lowmem: bool) -> int:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
 
-    if cfg.reference_name:
-        reference_index = file_names.index(cfg.reference_name)
-    else:
-        reference_index = pick_first_pass(queries, verbose=bool(cfg.verbose))
+    with profile.span("pick"):
+        if cfg.reference_name:
+            reference_index = file_names.index(cfg.reference_name)
+        else:
+            reference_index = pick_first_pass(queries, verbose=bool(cfg.verbose))
 
     try:
-        with profiled(cfg):
+        with profile.profiled(cfg):
             counts = process(queries[reference_index], queries, cfg)
             if cfg.two_pass:
-                second_index = pick_second_pass(counts)
+                with profile.span("pick"):
+                    second_index = pick_second_pass(counts)
                 if second_index == reference_index:
                     # the pass-1 reference is already the central genome: a
                     # second pass would repeat the same deterministic run
@@ -576,7 +606,8 @@ def _run(cfg: TorchRunConfig, file_names: list[str], lowmem: bool) -> int:
                         )
                 else:
                     reference_index = second_index
-                    counts = process(queries[reference_index], queries, cfg)
+                    with profile.second_pass():
+                        counts = process(queries[reference_index], queries, cfg)
     except (ConfigError, DevdError) as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
@@ -595,11 +626,13 @@ def _run(cfg: TorchRunConfig, file_names: list[str], lowmem: bool) -> int:
 
     names = [q.name for q in queries]
     lengths = np.array([len(q) for q in queries], dtype=np.int64)
-    print_matrix(cfg, names, lengths, counts, reference_index)
+    with profile.span("print"):
+        print_matrix(cfg, names, lengths, counts, reference_index)
 
     report_path = os.environ.get("PHYLONIUM_TPU_RUN_REPORT")
     if report_path:
         # written after the matrix, so it never perturbs the output
+        LAST_RUN_INFO["spans"] = profile.recorder().report()
         try:
             with open(report_path, "w") as f:
                 json.dump(LAST_RUN_INFO, f)

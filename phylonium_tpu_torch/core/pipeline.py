@@ -64,8 +64,10 @@ after the prewarm's join. A run that counts on the host, by
 ``--count-backend host`` or by the dispatch model, or that sends its
 device work to the device server, never imports torch.
 
-Each phase is timed into ``LAST_RUN_INFO["timings"]`` inside a profiler
-range of its name (utils/profile.py), which ``--profile`` traces.
+Each phase is timed into ``LAST_RUN_INFO["timings"]``, the duration of
+its span of the same name (utils/profile.py), and each call of
+``process`` is a ``process`` span that its phases and ``process.rest``
+spans tile.
 
 'auto' counting on a CUDA device is routed as the JAX package routes it,
 by its dispatch model with the card's numbers (``_auto_prefers_host``,
@@ -135,7 +137,7 @@ from phylonium_tpu_torch.model.evo import EvoCounts
 from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, ROW_ALIGN
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.serve.client import devd_enabled, get_client
-from phylonium_tpu_torch.utils import calibration, platform
+from phylonium_tpu_torch.utils import calibration, platform, profile
 from phylonium_tpu_torch.utils.platform import (
     carrier,
     check_device,
@@ -908,8 +910,10 @@ def finish_ship_accounting(feeder: DeviceRowFeeder | None) -> None:
 
 def _report_devd(feeder: DeviceRowFeeder) -> None:
     """``devd``, the device server's account of a run it counted: socket,
-    pid, protocol, the client's wait for the count, the pieces its cache
-    held, its launches and memory."""
+    pid, protocol, the client's wait for the count (its ``devd.finish``
+    span), the pieces its cache held, its launches and memory on the card
+    and on the host (``rss``: ``rss_mb``, ``anon_mb``, ``file_mb`` as it
+    replied), and the spans it dropped."""
     from phylonium_tpu_torch.serve.wire import PROTOCOL
 
     reply = feeder.devd_reply
@@ -923,6 +927,8 @@ def _report_devd(feeder: DeviceRowFeeder) -> None:
         "cache_hits": 0 if shipper is None else shipper.hits,
         "launches": reply.get("launches"),
         "memory_reserved": reply.get("memory_reserved"),
+        "rss": reply.get("rss"),
+        "spans_dropped": reply.get("spans_dropped", 0),
     }
 
 
@@ -1010,6 +1016,15 @@ def _pod_streamed(ref, threshold, queries, cfg, timings, warm) -> tuple:
 
 
 def process(
+    subject: Sequence, queries: list[Sequence], cfg: TorchRunConfig
+) -> EvoCounts:
+    """Index ``subject``, map ``queries`` onto it, count all pairs, inside
+    a ``process`` span that its phases and ``process.rest`` spans tile."""
+    with profile.span("process", rest=profile.PROCESS_REST):
+        return _process(subject, queries, cfg)
+
+
+def _process(
     subject: Sequence, queries: list[Sequence], cfg: TorchRunConfig
 ) -> EvoCounts:
     check_mesh(cfg)

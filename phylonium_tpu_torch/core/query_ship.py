@@ -77,6 +77,7 @@ import numpy as np
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.ops.pileup_groups import row_groups
 from phylonium_tpu_torch.ops.pileup_prep import _bucket, group_payload
+from phylonium_tpu_torch.utils import profile
 from phylonium_tpu_torch.utils.calibration import Calibration
 from phylonium_tpu_torch.utils.platform import device_type, resolve_device
 
@@ -276,7 +277,7 @@ class QueryShipper:
         self._bytes = 0
         self._seconds = 0.0
         self._error: BaseException | None = None
-        self._t0 = time.perf_counter()
+        self._began = time.time_ns()  # the debug lines' +T, on the spans' clock
         self._cond = threading.Condition()
         self._q: queue.Queue = queue.Queue()
         self._worker = threading.Thread(
@@ -314,9 +315,12 @@ class QueryShipper:
             self._q.put((key, self._gidx, group[lo:hi]))
             self._gidx += 1
 
-    def _trace(self, msg: str) -> None:
+    def _trace(self, msg: str, at: int | None = None) -> None:
+        """A debug line, stamped ``at`` (``time.time_ns()``; default now)
+        from the shipper's start."""
         if os.environ.get("PHYLONIUM_TPU_DEBUG"):
-            print(f"query shipper [+{time.perf_counter() - self._t0:.2f}s]: {msg}",
+            at = time.time_ns() if at is None else at
+            print(f"query shipper [+{(at - self._began) / 1e9:.2f}s]: {msg}",
                   file=sys.stderr)
 
     def _give_up(self, e: BaseException) -> None:
@@ -346,33 +350,35 @@ class QueryShipper:
                     return
                 if self.cancelled or self._error is not None:
                     continue
-                key, _, items = item
-                if items and not isinstance(items[0], np.ndarray):
-                    packed, bases, seps = _payload_from_compacted(items)
-                else:
-                    packed, bases, seps = group_payload(items)
-                host = torch.from_numpy(packed.view(np.int32))
-                event = None
-                if cuda:
-                    with torch.cuda.device(device):
-                        if stream is None:
-                            stream = torch.cuda.Stream(device)
-                        start = torch.cuda.Event(enable_timing=True)
-                        event = torch.cuda.Event(enable_timing=True)
-                        with torch.cuda.stream(stream):
-                            pinned = host.pin_memory()
-                            start.record(stream)
-                            words = pinned.to(device, non_blocking=True)
-                            event.record(stream)
-                    event.synchronize()
-                    seconds = start.elapsed_time(event) / 1e3
-                    self._store.record_link(packed.nbytes, seconds)
-                    self._seconds += seconds
-                else:
-                    words = host
-                self._bytes += packed.nbytes
-                with self._cond:
-                    self._pieces[key] = Resident(words, bases, seps, event)
+                key, gidx, items = item
+                with profile.span("ship.piece", attrs={"gidx": gidx}) as piece:
+                    if items and not isinstance(items[0], np.ndarray):
+                        packed, bases, seps = _payload_from_compacted(items)
+                    else:
+                        packed, bases, seps = group_payload(items)
+                    piece.note("bytes", packed.nbytes)
+                    host = torch.from_numpy(packed.view(np.int32))
+                    event = None
+                    if cuda:
+                        with torch.cuda.device(device):
+                            if stream is None:
+                                stream = torch.cuda.Stream(device)
+                            start = torch.cuda.Event(enable_timing=True)
+                            event = torch.cuda.Event(enable_timing=True)
+                            with torch.cuda.stream(stream):
+                                pinned = host.pin_memory()
+                                start.record(stream)
+                                words = pinned.to(device, non_blocking=True)
+                                event.record(stream)
+                        event.synchronize()
+                        seconds = start.elapsed_time(event) / 1e3
+                        self._store.record_link(packed.nbytes, seconds)
+                        self._seconds += seconds
+                    else:
+                        words = host
+                    self._bytes += packed.nbytes
+                    with self._cond:
+                        self._pieces[key] = Resident(words, bases, seps, event)
             except Exception as e:  # noqa: BLE001 — raised by take()
                 self._give_up(e)
             finally:
@@ -409,35 +415,44 @@ class QueryShipper:
                 self._q.task_done()
 
     def _ship_devd(self, client, key, gidx: int, items: list) -> None:
-        t_pack = time.perf_counter()
-        compacted = bool(items) and not isinstance(items[0], np.ndarray)
-        content = content_key(items)
-        packed = None
-        if compacted:
-            packed, bases, seps = _payload_from_compacted(items)
+        """One piece to the server in a ``ship.piece`` span: its content
+        key, ``qhave``, and on a miss its pack and ``qgroup``; its debug
+        line as the span closes."""
+        with profile.timed("ship.piece", attrs={"gidx": gidx}) as piece:
+            compacted = bool(items) and not isinstance(items[0], np.ndarray)
+            content = content_key(items)
+            packed = None
+            if compacted:
+                packed, bases, seps = _payload_from_compacted(items)
+            else:
+                # a hit needs no pack: hashing is cheaper than packing
+                bases, seps = _raw_layout(items)
+            header = {"run": self.run_id, "gidx": gidx, "key": content}
+            reply, _ = client.request({"op": "qhave", **header})
+            hit = bool(reply.get("have"))
+            piece.note("hit", hit)
+            if hit:
+                self.hits += 1
+                piece.note("bytes", 0)
+            else:
+                if packed is None:
+                    packed = group_payload(items)[0]
+                pack_s = piece.elapsed()
+                reply, _ = client.request({"op": "qgroup", **header}, [packed.view(np.int32)])
+                # the server's copy, by CUDA events; None on a CPU
+                seconds = reply.get("seconds") or piece.elapsed() - pack_s
+                if reply.get("seconds"):
+                    self._store.record_link(packed.nbytes, seconds)
+                    self._seconds += seconds
+                self._bytes += packed.nbytes
+                piece.note("bytes", packed.nbytes)
+            with self._cond:
+                self._pieces[key] = DevdGroup(gidx, bases, seps)
+        if hit:
+            self._trace(f"group {gidx} cache hit (0 bytes)", piece.end)
         else:
-            # a hit needs no pack: hashing is cheaper than packing
-            bases, seps = _raw_layout(items)
-        header = {"run": self.run_id, "gidx": gidx, "key": content}
-        reply, _ = client.request({"op": "qhave", **header})
-        if reply.get("have"):
-            self.hits += 1
-            self._trace(f"group {gidx} cache hit (0 bytes)")
-        else:
-            if packed is None:
-                packed = group_payload(items)[0]
-            t0 = time.perf_counter()
-            reply, _ = client.request({"op": "qgroup", **header}, [packed.view(np.int32)])
-            seconds = reply.get("seconds")
-            if seconds:  # the server's copy, by CUDA events; None on a CPU
-                self._store.record_link(packed.nbytes, seconds)
-                self._seconds += seconds
-            self._bytes += packed.nbytes
-            self._trace(f"group {gidx} pack {t0 - t_pack:.2f}s ship "
-                        f"{packed.nbytes / 1e6:.1f} MB in "
-                        f"{seconds or time.perf_counter() - t0:.2f}s")
-        with self._cond:
-            self._pieces[key] = DevdGroup(gidx, bases, seps)
+            self._trace(f"group {gidx} pack {pack_s:.2f}s ship "
+                        f"{packed.nbytes / 1e6:.1f} MB in {seconds:.2f}s", piece.end)
 
     def take(self, lo: int, hi: int) -> Resident | DevdGroup | None:
         """The resident piece of rows [lo, hi), or None on a boundary miss

@@ -45,10 +45,19 @@ them in the server: ``take`` gives a ``query_ship.DevdGroup``) as one
 built (``_drain_devd``, the port of the JAX feeder's). Each feeder sends
 a generation of its own, from a process-wide counter, so that the second
 pass of ``-2`` (the same run id, its pieces still resident) starts a
-fresh panel in the server. With ``PHYLONIUM_TPU_DEBUG`` set, the feeder
-prints the JAX feeder's trace lines to stderr: ``row feeder: group @LO
-prep T s request T s`` for each group it sends, and ``row feeder: finish
-wire T s (daemon S s)``.
+fresh panel in the server.
+
+Spans (utils/profile.py): the worker records a ``feed.group`` span a
+group, whose parent is the span the group was fed in, with
+``feed.take`` (its wait for the shipper's piece), ``feed.prep``
+(``prepare_group``) and, to the server, ``feed.request`` inside;
+``finish()`` records ``compare.join``, its wait for the worker, and
+adopts the server's spans from the ``finish`` reply. With
+``PHYLONIUM_TPU_DEBUG`` set, the feeder prints the JAX feeder's trace
+lines to stderr as their spans close: ``row feeder: group @LO prep T s
+request T s`` for each group it sends, and ``row feeder: finish wire T s
+(daemon S s)`` (the client's ``devd.finish`` span and the server's
+``devd.count``).
 """
 
 from __future__ import annotations
@@ -58,7 +67,6 @@ import os
 import queue
 import sys
 import threading
-import time
 
 import numpy as np
 
@@ -67,7 +75,8 @@ from phylonium_tpu_torch.core.map_native import map_batch_native
 from phylonium_tpu_torch.index.esa import ESAIndex
 from phylonium_tpu_torch.ops.pileup_groups import prepare_group, row_groups
 from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, packed_width
-from phylonium_tpu_torch.utils.profile import GROUP_RANGE, span
+from phylonium_tpu_torch.utils import profile
+from phylonium_tpu_torch.utils.profile import GROUP_RANGE
 from phylonium_tpu_torch.utils.progress import ProgressBar
 
 # groups waiting for the worker, beyond the one it builds; each holds its
@@ -195,56 +204,65 @@ class DeviceRowFeeder:
                 if item is None:
                     return
                 if self._error is None and not self._stopped:
-                    with span(GROUP_RANGE):
-                        self._build(*item)
+                    self._build(*item)
             except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
                 self._error = e
             finally:
                 self._q.task_done()
 
-    def _build(self, lo: int, queries: list, homologies: list) -> None:
-        import torch
+    def _take(self, lo: int, rows: int):
+        """The shipper's piece of rows [lo, lo + rows), waited for in a
+        ``feed.take`` span; None without a shipper."""
+        if self._shipper is None:
+            return None
+        with profile.span("feed.take"):
+            return self._shipper.take(lo, lo + rows)
 
-        from phylonium_tpu_torch.ops import pileup_device
+    def _build(self, lo: int, queries: list, homologies: list, parent) -> None:
+        with profile.span(GROUP_RANGE, parent, {"lo": lo, "rows": len(queries),
+                                                "queued": True}):
+            import torch
 
-        resident = None
-        if self._shipper is not None:
-            resident = self._shipper.take(lo, lo + len(queries))
-            if resident is None:
-                self.repacked += 1
-            else:
-                self.taken += 1
-        inputs = prepare_group(
-            queries, homologies, self.ref_len,
-            resident=None if resident is None else resident[:3],
-        )
-        out = self.panel[lo : lo + len(queries)]
-        if self._stream is None:
-            tensors = [a if torch.is_tensor(a) else torch.from_numpy(a) for a in inputs]
-            pileup_device.build_packed_rows(
-                tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
-            )
+            from phylonium_tpu_torch.ops import pileup_device
+
+            resident = self._take(lo, len(queries))
+            if self._shipper is not None:
+                if resident is None:
+                    self.repacked += 1
+                else:
+                    self.taken += 1
+            with profile.span("feed.prep"):
+                inputs = prepare_group(
+                    queries, homologies, self.ref_len,
+                    resident=None if resident is None else resident[:3],
+                )
+            out = self.panel[lo : lo + len(queries)]
+            if self._stream is None:
+                tensors = [a if torch.is_tensor(a) else torch.from_numpy(a) for a in inputs]
+                pileup_device.build_packed_rows(
+                    tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
+                )
+                self.groups += 1
+                return
+            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                if resident is not None:
+                    # the shipper's copy ran on its own stream
+                    self._stream.wait_event(resident.event)
+                    resident.words.record_stream(self._stream)
+                # pinned staging: the copies run on the side stream, and the
+                # pinned allocator keeps each buffer until its copy is done
+                tensors = [
+                    a if torch.is_tensor(a)
+                    else torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
+                    for a in inputs
+                ]
+                pileup_device.build_packed_rows(
+                    tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
+                )
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            self._events.append(event)
             self.groups += 1
-            return
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            if resident is not None:
-                # the shipper's copy ran on its own stream
-                self._stream.wait_event(resident.event)
-                resident.words.record_stream(self._stream)
-            # pinned staging: the copies run on the side stream, and the
-            # pinned allocator keeps each buffer until its copy is done
-            tensors = [
-                a if torch.is_tensor(a)
-                else torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
-                for a in inputs
-            ]
-            pileup_device.build_packed_rows(
-                tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
-            )
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        self._events.append(event)
-        self.groups += 1
 
     def _drain_devd(self) -> None:
         client = None
@@ -260,42 +278,43 @@ class DeviceRowFeeder:
                 if item is None:
                     return
                 if client is not None and self._error is None and not self._stopped:
-                    with span(GROUP_RANGE):
-                        self._send(client, *item)
+                    self._send(client, *item)
             except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
                 self._error = e
             finally:
                 self._q.task_done()
 
-    def _send(self, client, lo: int, queries: list, homologies: list) -> None:
-        """One group to the server: its records and overlay, and its words
-        unless the shipper parked them there."""
+    def _send(self, client, lo: int, queries: list, homologies: list, parent) -> None:
+        """One group to the server, in a ``feed.group`` span: the shipper's
+        piece taken (``feed.take``), its records and overlay prepped
+        (``feed.prep``), and its words too unless the shipper parked them
+        there, sent (``feed.request``); its debug line as it closes."""
         from phylonium_tpu_torch.core.query_ship import DevdGroup
 
-        resident = None
-        if self._shipper is not None:
-            resident = self._shipper.take(lo, lo + len(queries))
+        with profile.timed(GROUP_RANGE, parent, {"lo": lo, "rows": len(queries),
+                                                 "queued": True}):
+            resident = self._take(lo, len(queries))
             if isinstance(resident, DevdGroup):
                 self.taken += 1
-            else:
+            elif self._shipper is not None:
                 resident = None
                 self.repacked += 1
-        header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
-                  "rows": len(queries), "n": self.n, "ref_len": self.ref_len}
-        t0 = time.perf_counter()
-        if resident is None:
-            words, *rest = prepare_group(queries, homologies, self.ref_len)
-            arrays = [*rest, words]
-        else:
-            header["gidx"] = resident.gidx
-            _, *arrays = prepare_group(
-                queries, homologies, self.ref_len,
-                resident=(None, resident.bases, resident.seps),
-            )
-        t1 = time.perf_counter()
-        client.request(header, arrays)
-        self.groups += 1
-        _trace(f"group @{lo} prep {t1 - t0:.2f}s request {time.perf_counter() - t1:.2f}s")
+            header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
+                      "rows": len(queries), "n": self.n, "ref_len": self.ref_len}
+            with profile.timed("feed.prep") as prep:
+                if resident is None:
+                    words, *rest = prepare_group(queries, homologies, self.ref_len)
+                    arrays = [*rest, words]
+                else:
+                    header["gidx"] = resident.gidx
+                    _, *arrays = prepare_group(
+                        queries, homologies, self.ref_len,
+                        resident=(None, resident.bases, resident.seps),
+                    )
+            with profile.timed("feed.request") as request:
+                client.request(header, arrays)
+            self.groups += 1
+        _trace(f"group @{lo} prep {prep.seconds:.2f}s request {request.seconds:.2f}s")
 
     def feed(self, queries: list, homologies: list) -> None:
         """Enqueue the next ``len(queries)`` genomes, in order, as one
@@ -316,8 +335,9 @@ class DeviceRowFeeder:
         bounds = row_groups(
             [len(q) for q in queries], cut_len, max(len(queries), 1)
         )
+        parent = profile.current_id()  # the span the groups are fed in
         for lo, hi in bounds:
-            self._q.put((self._rows_done + lo, queries[lo:hi], homologies[lo:hi]))
+            self._q.put((self._rows_done + lo, queries[lo:hi], homologies[lo:hi], parent))
         self._rows_done += len(queries)
 
     def _stop(self) -> None:
@@ -357,17 +377,23 @@ class DeviceRowFeeder:
         if not self.devd:
             from phylonium_tpu_torch.ops import pair_count
 
-            return pair_count.pair_counts_rows(self.built())
+            with profile.span("compare.join"):
+                panel = self.built()
+            return pair_count.pair_counts_rows(panel)
         from phylonium_tpu_torch.serve.client import get_client
 
-        self._joined()
-        t0 = time.perf_counter()
+        with profile.span("compare.join"):
+            self._joined()
         reply, (subs, homs) = get_client(str(self.device)).request(
             {"op": "finish", "run": self.run_id, "gen": self.gen, "n": self.n}
         )
-        self.devd_wait_s = time.perf_counter() - t0
+        # the client's devd.finish span, and the server's devd.count
+        self.devd_wait_s = profile.last_closed().seconds
         _trace(f"finish wire {self.devd_wait_s:.2f}s (daemon {reply.get('seconds')}s)")
         self.devd_count_s = reply["seconds"]
+        rec = profile.recorder()
+        if rec is not None:
+            rec.adopt(reply.pop("spans", None))
         self.devd_reply = reply
         return subs.astype(np.int64), homs.astype(np.int64)
 

@@ -19,6 +19,11 @@ answers), the error also quotes the tail of the daemon's log and names
 ``PHYLONIUM_TPU_DEVD=0``, which runs the device work in process. The run
 fails with it; no caller retries in process or on the host.
 
+Every request is a ``devd.<op>`` span (utils/profile.py) on the calling
+thread, with its wait for the one connection's lock in
+``attrs.lock_wait_s``, and the first connect a ``devd.connect`` span
+(``attrs.spawned``: whether it spawned the daemon and waited for it).
+
 Like the JAX client, this module imports numpy only, never torch: the CLI
 process of a device-server run makes no tensor.
 """
@@ -37,6 +42,7 @@ import numpy as np
 
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.serve.wire import PROTOCOL, recv_msg, send_msg, sock_path
+from phylonium_tpu_torch.utils import profile
 from phylonium_tpu_torch.utils.platform import device_type, parse_device
 
 
@@ -93,7 +99,9 @@ class DevdClient:
         self._lock = threading.Lock()
         self.pid: int | None = None
         self._spawned: subprocess.Popen | None = None
-        self._sock = self._connect(spawn)
+        with profile.span("devd.connect") as connect:
+            self._sock = self._connect(spawn)
+            connect.note("spawned", self._spawned is not None)
 
     def _error(self, msg: str) -> DevdError:
         return DevdError(f"device server at {self.path}: {msg}")
@@ -247,32 +255,39 @@ class DevdClient:
                 ) -> tuple[dict, list[np.ndarray]]:
         """One request and its reply, within ``timeout`` seconds from now:
         the wait for the connection's lock and the socket's share one
-        deadline."""
-        deadline = time.monotonic() + timeout
-        if not self._lock.acquire(timeout=max(timeout, 0.0)):
-            raise self._error(f"busy: the connection was not free within {timeout:.1f} s")
-        try:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise self._error(
-                    f"{header.get('op')}: no time left of {timeout:.1f} s after the "
-                    "wait for the connection"
-                )
+        deadline. It is a ``devd.<op>`` span, with the lock's wait in
+        ``attrs.lock_wait_s``; where the span is recorded, the header
+        carries its id (``span``), under which the server records its own
+        spans of the request."""
+        with profile.timed(f"devd.{header.get('op')}") as span:
+            if span.id is not None:
+                header = {**header, "span": span.id}
+            deadline = time.monotonic() + timeout
+            if not self._lock.acquire(timeout=max(timeout, 0.0)):
+                raise self._error(f"busy: the connection was not free within {timeout:.1f} s")
+            span.note("lock_wait_s", span.elapsed())
             try:
-                if self._sock is None:
-                    self._sock = self._try_connect(min(2.0, left))
-                self._sock.settimeout(left)
-                send_msg(self._sock, header, arrays)
-                reply, out = recv_msg(self._sock)
-            except OSError as e:
-                # the connection is out of step now (a timed-out request's
-                # reply may still come): drop it, the next request reconnects
-                if self._sock is not None:
-                    self._sock.close()
-                    self._sock = None
-                raise self._error(f"{header.get('op')}: i/o failed: {e!r}") from e
-        finally:
-            self._lock.release()
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise self._error(
+                        f"{header.get('op')}: no time left of {timeout:.1f} s after the "
+                        "wait for the connection"
+                    )
+                try:
+                    if self._sock is None:
+                        self._sock = self._try_connect(min(2.0, left))
+                    self._sock.settimeout(left)
+                    send_msg(self._sock, header, arrays)
+                    reply, out = recv_msg(self._sock)
+                except OSError as e:
+                    # the connection is out of step now (a timed-out request's
+                    # reply may still come): drop it, the next request reconnects
+                    if self._sock is not None:
+                        self._sock.close()
+                        self._sock = None
+                    raise self._error(f"{header.get('op')}: i/o failed: {e!r}") from e
+            finally:
+                self._lock.release()
         if not reply.get("ok"):
             if reply.get("poisoned"):
                 # the daemon's context can never heal: retire it now, so

@@ -24,7 +24,7 @@ serves:
                                              reply follows the copy's event
     group   {run, gen, lo, rows, n, ref_len, gidx?}
             + [intervals, offsets, cols, vals] (+ [words] without gidx)
-                                         -> {ok, seconds}: queues the build of
+                                         -> {ok}: queues the build of
                                              rows [lo, lo + rows) of the run's
                                              [n, W] panel (the pileup-build
                                              kernel, ``ops.pileup_device``);
@@ -32,10 +32,14 @@ serves:
                                              are resident before the reply,
                                              the build is not
     finish  {run, gen, n}                -> {ok, seconds, launches,
-                                             memory_reserved} + [subs, homs]:
-                                             joins the build queue, waits on
-                                             the builds' events, counts the
-                                             panel (``ops.pair_count``)
+                                             memory_reserved, pid, device,
+                                             rss?, spans?, spans_dropped?}
+                                             + [subs, homs]: joins the build
+                                             queue, waits on the builds'
+                                             events, counts the panel
+                                             (``ops.pair_count``); ``seconds``
+                                             is the count's, ``rss`` this
+                                             process's memory then
     cancel  {run}                        -> {ok}: drops the run's queued builds
 
 The JAX daemon's ``prewarm`` op is not carried: its one caller there is
@@ -71,6 +75,20 @@ retires it, and exits. It also exits after
 ``PHYLONIUM_TPU_DEVD_IDLE_S`` idle seconds (default 1800), and on
 SIGTERM, removing its socket and pidfile.
 
+Spans (utils/profile.py, on the host's wall clock, which the client
+shares): a request whose header carries the client's span id (``span``)
+is recorded as a ``devd.<op>`` span under it, into its run's bounded list
+(``SPAN_CAP``; the rest are counted), with ``devd.copy`` for each
+host-to-device copy and its ``pin_memory`` (``attrs.bytes``),
+``devd.build`` on the build thread for each queued build (under the
+``devd.group`` that queued it; ``attrs.queued_s``), and
+``devd.finish.join`` (the wait for the build queue) and ``devd.count``
+(the events' wait, the count, the results to the host) inside
+``devd.finish``. The ``finish`` reply carries the run's spans so far and
+clears them, and ``rss``: ``VmRSS``, ``RssAnon`` and ``RssFile`` in MB,
+read in a ``devd.rss`` span. A request without a span id records
+nothing, and its ``finish`` reply has neither.
+
 On ``--device cpu`` the builds and counts run the kernels' plain
 versions, as the in-process route does there; on a card the kernels
 launch, with no fallback. ``PHYLONIUM_TPU_DEVD_INJECT`` injects faults
@@ -84,6 +102,7 @@ from __future__ import annotations
 
 import os
 import queue
+import re
 import signal
 import socket
 import sys
@@ -106,6 +125,7 @@ from phylonium_tpu_torch.serve.wire import (  # noqa: F401
     send_msg,
     sock_path,
 )
+from phylonium_tpu_torch.utils import profile
 from phylonium_tpu_torch.utils.platform import resolve_device
 
 # CUDA errors after which the context is unusable for the rest of the
@@ -122,6 +142,10 @@ _INJECTED_POISON = "CUDA error: an illegal memory access was encountered (inject
 
 # the accept loop's tick: how soon a poisoned or idle daemon notices
 _ACCEPT_TICK_S = 1.0
+
+# the most spans a run keeps between two finish replies (a run of 563
+# genomes records about 30)
+SPAN_CAP = 4096
 
 
 def _is_poison(err: str) -> bool:
@@ -158,6 +182,7 @@ class _Run:
         self.current: _Pass | None = None
         self.queue: queue.Queue | None = None
         self.closed = False
+        self.spans = profile.Recorder("devd", cap=SPAN_CAP)
 
 
 class _State:
@@ -241,13 +266,38 @@ def _to_device(state: _State, array: np.ndarray):
     stream = state.stream("copy")
     start = torch.cuda.Event(enable_timing=True)
     done = torch.cuda.Event(enable_timing=True)
-    with torch.cuda.stream(stream):
-        pinned = host.pin_memory()
-        start.record(stream)
-        words = pinned.to(state.device, non_blocking=True)
-        done.record(stream)
-    done.synchronize()
+    with profile.span("devd.copy", attrs={"bytes": array.nbytes}):
+        with torch.cuda.stream(stream):
+            pinned = host.pin_memory()
+            start.record(stream)
+            words = pinned.to(state.device, non_blocking=True)
+            done.record(stream)
+        done.synchronize()
     return words, start.elapsed_time(done) / 1e3
+
+
+def _rss_mb() -> dict:
+    """This process's resident memory now, in MB: ``VmRSS``, and of it
+    ``RssAnon`` and ``RssFile`` (/proc/self/status). Where the status has
+    no such split (gVisor's), the sums of ``Anonymous`` and of ``Rss``
+    less ``Anonymous`` over /proc/self/smaps; empty where neither file
+    says."""
+    kb = {}
+    try:
+        with open("/proc/self/status", "rb") as f:
+            for name, value in re.findall(rb"^(VmRSS|RssAnon|RssFile):\s+(\d+)", f.read(),
+                                          re.M):
+                kb[name.decode()] = int(value)
+        if "VmRSS" in kb and "RssAnon" not in kb:
+            with open("/proc/self/smaps", "rb") as f:
+                smaps = f.read()
+            rss = sum(map(int, re.findall(rb"^Rss:\s+(\d+)", smaps, re.M)))
+            kb["RssAnon"] = sum(map(int, re.findall(rb"^Anonymous:\s+(\d+)", smaps, re.M)))
+            kb["RssFile"] = rss - kb["RssAnon"]
+    except OSError:
+        pass
+    names = {"VmRSS": "rss_mb", "RssAnon": "anon_mb", "RssFile": "file_mb"}
+    return {names[k]: v * 1024 / 1e6 for k, v in kb.items()}
 
 
 def _build_one(state: _State, run: _Run, stream, item) -> None:
@@ -275,7 +325,8 @@ def _build_one(state: _State, run: _Run, stream, item) -> None:
         # the words were copied on the copy stream, whose event was
         # synchronized; this stream may still read them when they are freed
         words.record_stream(stream)
-        tensors = [t.pin_memory().to(state.device, non_blocking=True) for t in records]
+        with profile.span("devd.copy", attrs={"bytes": sum(t.nbytes for t in records)}):
+            tensors = [t.pin_memory().to(state.device, non_blocking=True) for t in records]
         with state.kernel_lock:
             before = pileup_device.KERNEL_LAUNCHES
             pileup_device.build_packed_rows(
@@ -320,9 +371,14 @@ def _builder(state: _State, run: _Run) -> queue.Queue:
                 if setup_error is not None:
                     p.error = setup_error
                     continue
-                if _inject() == "slow_build":
-                    time.sleep(3.0)
-                _build_one(state, run, stream, item)
+                cause, queued = item[0]["cause"]
+                with profile.recording(run.spans if cause is not None else None), \
+                        profile.span("devd.build", cause, {
+                            "lo": item[0]["lo"], "queued": True,
+                            "queued_s": (time.time_ns() - queued) / 1e9}):
+                    if _inject() == "slow_build":
+                        time.sleep(3.0)
+                    _build_one(state, run, stream, item)
             except Exception as e:  # noqa: BLE001 — raised at finish
                 err = repr(e)[:500]
                 item[0]["pass"].error = err
@@ -400,7 +456,6 @@ def _handle(state: _State, header: dict, arrays: list):
     if op == "group":
         run = state.run(header["run"])
         gen = header.get("gen")
-        t0 = time.perf_counter()
         if run.current is None or gen != run.gen:
             # a new generation (the second pass of -2) starts a fresh panel
             run.gen = gen
@@ -418,9 +473,11 @@ def _handle(state: _State, header: dict, arrays: list):
         elif int(header["gidx"]) not in run.groups:
             return {"ok": False, "error": f"run {header['run']} holds no piece "
                                           f"{header['gidx']}"}, []
-        item = ({**header, "pass": p}, list(arrays), words)
+        # the build's span names this request's as its cause
+        item = ({**header, "pass": p, "cause": (profile.current_id(), time.time_ns())},
+                list(arrays), words)
         _builder(state, run).put(item)
-        return {"ok": True, "seconds": time.perf_counter() - t0}, []
+        return {"ok": True}, []
 
     if op == "finish":
         if _inject() == "poison":
@@ -431,7 +488,8 @@ def _handle(state: _State, header: dict, arrays: list):
         if p is None or (header.get("gen") is not None and header["gen"] != run.gen):
             return {"ok": False, "error": f"no panel for run {header['run']}"}, []
         if run.queue is not None:
-            run.queue.join()  # every queued build launched, or failed
+            with profile.span("devd.finish.join"):
+                run.queue.join()  # every queued build launched, or failed
         n = int(header["n"])
         if p.error is not None:
             run.current = None
@@ -440,22 +498,19 @@ def _handle(state: _State, header: dict, arrays: list):
             run.current = None
             return {"ok": False, "error": (
                 f"run {header['run']} built {p.rows_built} of {n} rows")}, []
-        t0 = time.perf_counter()
-        if state.cuda:
-            current = torch.cuda.current_stream(state.device)
-            for event in p.events:
-                current.wait_event(event)
-        with state.kernel_lock:
-            before = (pair_count.KERNEL_LAUNCHES, pair_count.PLAIN_CALLS)
-            subs, homs = pair_count.pair_counts_rows(p.panel)
-            p.launches["count"] += pair_count.KERNEL_LAUNCHES - before[0]
-            p.launches["count_plain"] += pair_count.PLAIN_CALLS - before[1]
-        seconds = time.perf_counter() - t0
+        with profile.timed("devd.count") as count:
+            if state.cuda:
+                current = torch.cuda.current_stream(state.device)
+                for event in p.events:
+                    current.wait_event(event)
+            with state.kernel_lock:
+                before = (pair_count.KERNEL_LAUNCHES, pair_count.PLAIN_CALLS)
+                subs, homs = pair_count.pair_counts_rows(p.panel)
+                p.launches["count"] += pair_count.KERNEL_LAUNCHES - before[0]
+                p.launches["count_plain"] += pair_count.PLAIN_CALLS - before[1]
         # the panel is consumed; the pieces stay for a later pass
         run.current = None
-        if os.environ.get("PHYLONIUM_TPU_DEVD_LOG_FINISH", "1") != "0":
-            sys.stderr.write(f"devd: finish n={n} {seconds:.4f}s {p.launches}\n")
-        return {"ok": True, "seconds": seconds, "launches": p.launches,
+        return {"ok": True, "seconds": count.seconds, "launches": p.launches,
                 "memory_reserved": state.memory_reserved(), "pid": os.getpid(),
                 "device": str(state.device)}, [subs, homs]
 
@@ -480,14 +535,26 @@ def _serve_conn(state: _State, conn: socket.socket, activity: dict) -> None:
             except (WireError, OSError, ValueError):
                 return  # the client is gone
             activity["t"] = time.time()
-            if isinstance(header.get("run"), str):
-                touched.add(header["run"])
-            try:
-                reply, out = _handle(state, header, arrays)
-            except Exception as e:  # noqa: BLE001 — the daemon stays up
-                err = repr(e)[:500]
-                reply, out = {"ok": False, "error": err}, []
-                state.poison(err, header.get("op"))
+            run_id, cause = header.get("run"), header.get("span")
+            if isinstance(run_id, str):
+                touched.add(run_id)
+            spans = state.run(run_id).spans if cause is not None and isinstance(
+                run_id, str) else None
+            reported = spans is not None and header.get("op") == "finish"
+            with profile.recording(spans):
+                with profile.span(f"devd.{header.get('op')}", cause):
+                    try:
+                        reply, out = _handle(state, header, arrays)
+                    except Exception as e:  # noqa: BLE001 — the daemon stays up
+                        err = repr(e)[:500]
+                        reply, out = {"ok": False, "error": err}, []
+                        state.poison(err, header.get("op"))
+                    if reported and reply.get("ok"):
+                        # the run's report holds what it replies: the memory now
+                        with profile.span("devd.rss"):
+                            reply["rss"] = _rss_mb()
+            if reported and reply.get("ok"):
+                reply["spans"], reply["spans_dropped"] = spans.take()
             if state.poisoned:
                 reply.setdefault("poisoned", True)
             try:
@@ -572,6 +639,7 @@ def serve(path: str | None = None, device: str = "cuda", idle_s: float | None = 
             activity["t"] = time.time()
             threading.Thread(
                 target=_serve_conn, args=(state, conn, activity), daemon=True,
+                name="devd-conn",
             ).start()
     finally:
         srv.close()

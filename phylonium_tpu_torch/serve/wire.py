@@ -36,7 +36,7 @@ _MAX_BODY = 8 << 30
 # the port's own stamp, bumped on every protocol change, and the hash of
 # the kernel library this tree builds: a daemon from another tree, with
 # other kernels, answers ping with another protocol and is replaced
-PROTOCOL_STAMP = "phyd-torch-1"
+PROTOCOL_STAMP = "phyd-torch-2"
 PROTOCOL = f"{PROTOCOL_STAMP}+{_build.library_digest()}"
 
 

@@ -1,0 +1,17 @@
+"""finish_wait_s: the client's wait for the device server's ``finish``
+(the builds joined, the count, the matrices back): its ``devd.finish``
+span, in seconds, the mean over the window's runs (the program's spans
+in each run report, ``spans``, on the host's wall clock). Nothing where
+no report holds such a span."""
+
+NAME, PROCESS = "devd.finish", "cli"
+
+
+def read(run: dict):
+    found = []
+    for r in run["runs"]:
+        spans = [s for s in r["report"].get("spans") or ()
+                 if s["name"] == NAME and s["process"] == PROCESS]
+        if spans:
+            found.append(sum(s["end"] - s["start"] for s in spans))
+    return sum(found) / len(found) if found else None

@@ -1,0 +1,17 @@
+"""server_count_s: the device server's count: its ``devd.count`` span
+(the builds' events waited on, the pair count, the results to the host),
+in seconds, the mean over the window's runs (the program's spans in each
+run report, ``spans``, on the host's wall clock). Nothing where no
+report holds such a span."""
+
+NAME, PROCESS = "devd.count", "devd"
+
+
+def read(run: dict):
+    found = []
+    for r in run["runs"]:
+        spans = [s for s in r["report"].get("spans") or ()
+                 if s["name"] == NAME and s["process"] == PROCESS]
+        if spans:
+            found.append(sum(s["end"] - s["start"] for s in spans))
+    return sum(found) / len(found) if found else None

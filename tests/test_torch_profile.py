@@ -3,7 +3,8 @@
 A ``--device cpu --profile=DIR`` run writes one Chrome trace into DIR
 holding a range for each phase of ``LAST_RUN_INFO["timings"]`` (and the
 streamed feeder's worker ranges), prints what a run without it prints,
-and loads no jax. A trace that cannot be written warns, still prints the
+and loads no jax. The trace carries clock anchors, whose wall times in
+its metadata map its ranges onto the run report's spans. A trace that cannot be written warns, still prints the
 matrix and exits 1. The run report is the JAX CLI's: ``LAST_RUN_INFO`` as
 JSON after the matrix; a report that cannot be written warns only.
 """
@@ -20,7 +21,7 @@ import sys
 import pytest
 
 from pileup_cases import write_fasta_panel
-from phylonium_tpu_torch.utils.profile import GROUP_RANGE
+from phylonium_tpu_torch.utils.profile import CLOCK_RANGE, GROUP_RANGE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -115,6 +116,31 @@ def test_profile_records_the_feeder_worker(files, env, phases):
     info = report["info"]
     assert names[GROUP_RANGE] == info["build_plain_calls"] > 0
     assert threads[GROUP_RANGE].isdisjoint(threads["index"])
+
+
+def test_profile_carries_clock_anchors(files, tmp_path):
+    """Two anchor ranges, their wall times in the trace's metadata: through
+    them each phase's range lands on its span in the run report."""
+    paths, tmp = files
+    trace_dir = tmp / "trace_anchors"
+    report = tmp_path / "report.json"
+    r, probe, _ = _probe([f"--profile={trace_dir}", *paths], tmp,
+                         PHYLONIUM_TPU_RUN_REPORT=str(report))
+    assert r.returncode == 0 and probe["rc"] == 0
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        trace = json.load(f)
+    walls = trace[CLOCK_RANGE]
+    ranges = {e["name"]: e for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    anchors = [ranges[f"{CLOCK_RANGE}.{i}"]["ts"] for i in range(2)]
+    assert len(walls) == 2 and walls[0] < walls[1]
+    offsets = [wall * 1e6 - ts for wall, ts in zip(walls, anchors)]
+    offset = sum(offsets) / 2
+    assert max(offsets) - min(offsets) < 5e3  # microseconds
+    spans = {s["name"]: s for s in json.loads(report.read_text())["spans"]}
+    for name in ("index", "map", "pileup", "compare", "process"):
+        wall = (ranges[name]["ts"] + offset) / 1e6
+        assert abs(wall - spans[name]["start"]) < 5e-3, name
 
 
 def test_unwritable_profile_dir_is_a_soft_error(files):
