@@ -22,8 +22,8 @@ import numpy as np
 from phylonium_tpu_torch.config import TorchRunConfig
 from phylonium_tpu_torch.core.pipeline import process
 from phylonium_tpu_torch.core.reference_pick import pick_first_pass, pick_second_pass
-from phylonium_tpu_torch.data.sequence import Sequence, filter_nucl, join
-from phylonium_tpu_torch.io.fasta import read_genome
+from phylonium_tpu_torch.data.sequence import Sequence, filter_nucl
+from phylonium_tpu_torch.io.fasta import GenomeReader
 from phylonium_tpu_torch.io.phylip import estimate
 from phylonium_tpu_torch.model.evo import EvoCounts
 
@@ -50,12 +50,13 @@ class DistanceResult:
 
 def _as_sequences(genomes) -> list[Sequence]:
     seqs: list[Sequence] = []
+    reader = GenomeReader()
     for g in genomes:
         if isinstance(g, Sequence):
             seqs.append(g)
         elif isinstance(g, str):
             # one FASTA file = one genome; contigs join with '!'
-            seqs.append(join(read_genome(g)))
+            seqs.append(reader.joined(g))
         else:
             name, data = g
             if isinstance(data, str):

@@ -11,27 +11,36 @@ reference's pfasta v15 (`libs/pfasta.c`):
   must have a non-empty sequence (pfasta.c:434-470);
 - errors carry 1-based line numbers.
 
-Like pfasta, input is consumed in bounded chunks from the file
-descriptor (pfasta.c:58,304-330 uses a 16 KiB buffer; here 1 MiB so the
-native one-pass body scan — the analogue of pfasta's SSE2
-``find_first_space`` — amortizes), so peak scratch memory is O(record),
-not O(file) plus copies.  Records are yielded as they complete.
+Like pfasta, ``stream_fasta`` and ``read_fasta`` consume input in bounded
+chunks from the file descriptor (pfasta.c:58,304-330 uses a 16 KiB
+buffer; here 1 MiB), so peak scratch memory is O(record), not O(file)
+plus copies.  Records are yielded as they complete.
 
-``read_genome`` applies ``filter_nucl`` per record and derives the genome
-name from the file path like `src/io.cxx:36-59`: strip directories, strip
-a ``.fa``/``.fas``/``.fasta`` extension (unknown extensions are kept).
+``GenomeReader`` (the CLI's read, ``api``) reads a whole file into a
+buffer its thread reuses and lands the genome in one native pass: each
+record filtered like ``filter_nucl``, the records joined by '!' as
+``data.sequence.join`` joins them, straight into the one ``bytes`` object
+the genome keeps.  A file pfasta rejects goes to ``read_fasta``'s parser,
+which words the error.  ``read_genome`` reads through the parser.  The
+genome's name comes from the file path like `src/io.cxx:36-59`: strip
+directories, strip a ``.fa``/``.fas``/``.fasta`` extension (unknown
+extensions are kept).
 
-A copy of the JAX package's ``phylonium_tpu/io/fasta.py``: the port carries
-its own host layer and imports nothing of that package.
+A copy of the JAX package's ``phylonium_tpu/io/fasta.py`` (its
+``GenomeReader`` the port's own): the port carries its own host layer and
+imports nothing of that package.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import BinaryIO, Iterator
 
-from phylonium_tpu_torch.data.sequence import Genome, Sequence, filter_nucl
+import numpy as np
+
+from phylonium_tpu_torch.data.sequence import Genome, Sequence, filter_nucl, join
 
 CHUNK_SIZE = 1 << 20
 
@@ -49,55 +58,24 @@ class FastaRecord:
 
 _WS = b" \t\n\r\x0b\x0c"
 
-_native_scan = None  # resolved once; False when the backend is absent
-_native_filter = None  # fused read-path hook; False when absent
+_native_land = None  # the native module for GenomeReader; False when absent
 
 
 def _scan_body(chunk: bytes) -> tuple[bytes, int]:
-    """(whitespace-stripped bytes, newline count) for one body span.
-
-    One native pass on large spans (stripping and newline counting as
-    separate Python/numpy passes dominated the read phase); pure-python
-    fallback keeps the module importable without the C++ backend."""
-    global _native_scan
-    if len(chunk) >= 4096 and _native_scan is not False:
-        if _native_scan is None:
-            try:
-                from phylonium_tpu_torch.native import fasta_scan_native
-
-                _native_scan = fasta_scan_native
-            except Exception:
-                _native_scan = False
-        if _native_scan:
-            return _native_scan(chunk)
+    """(whitespace-stripped bytes, newline count) for one body span."""
     return (
         chunk.translate(None, delete=_WS),
         chunk.count(b"\n"),
     )
 
 
-def _filter_body(chunk: bytes) -> tuple[bytes, int, int]:
-    """(ACGT-filtered uppercased bytes, newlines, non-ws count): the
-    fused read-path hook — one native traversal replaces the strip pass
-    + the later per-record filter_nucl pass (and their copies).  The
-    non-ws count keeps pfasta's empty-SEQUENCE check exact: an all-N
-    body filters to zero bytes but is NOT an empty sequence."""
-    from phylonium_tpu_torch.native import fasta_filter_native
-
-    return fasta_filter_native(chunk)
-
-
 class _Parser:
-    """Incremental FASTA state machine fed arbitrary byte chunks.
-
-    ``body_hook(span) -> (piece, newlines, nonws)`` transforms body
-    spans; the default strips whitespace (records carry raw sequence
-    bytes).  read_fasta passes the fused filter hook instead.
-    """
+    """Incremental FASTA state machine fed arbitrary byte chunks; records
+    carry their sequence bytes with whitespace stripped."""
 
     _START, _HEADER, _BODY = range(3)
 
-    def __init__(self, origin: str, body_hook=None):
+    def __init__(self, origin: str):
         self.origin = origin
         self.state = self._START
         self.line = 1  # 1-based line of the next unread byte
@@ -106,12 +84,6 @@ class _Parser:
         self.header = bytearray()
         self.pieces: list[bytes] = []
         self.body_seen = 0  # non-whitespace bytes of the open record
-        self.body_hook = body_hook or self._default_hook
-
-    @staticmethod
-    def _default_hook(span: bytes) -> tuple[bytes, int, int]:
-        stripped, newlines = _scan_body(span)
-        return stripped, newlines, len(stripped)
 
     def _open_record(self) -> None:
         self.state = self._HEADER
@@ -176,10 +148,10 @@ class _Parser:
                 stop = chunk.find(b"\n>", pos)
                 stop = end if stop < 0 else stop + 1
                 body = chunk[pos:stop]
-                piece, newlines, nonws = self.body_hook(body)
+                piece, newlines = _scan_body(body)
                 if piece:
                     self.pieces.append(piece)
-                self.body_seen += nonws
+                self.body_seen += len(piece)
                 self.line += newlines
                 self.at_line_start = body.endswith(b"\n") or (
                     self.at_line_start and not body
@@ -221,32 +193,10 @@ def parse_fasta_bytes(
 
 
 def read_fasta(file_name: str, prefix: str = "") -> list[Sequence]:
-    """Read one FASTA file into filtered sequences (src/io.cxx:66-97).
-
-    Filtering happens inside the parse via the fused native body pass
-    (strip + filter + counts in one traversal); without the native
-    backend, records parse raw and filter per record as before —
-    byte-identical output either way (tests/test_fasta_stream.py)."""
-    global _native_filter
-    if _native_filter is None:
-        try:
-            from phylonium_tpu_torch.native import fasta_filter_native  # noqa: F401
-
-            _native_filter = _filter_body
-        except Exception:
-            _native_filter = False
-    hook = _native_filter or None
+    """Read one FASTA file into filtered sequences (src/io.cxx:66-97),
+    through ``_Parser``: the path that words a rejected file's error."""
     with open(file_name, "rb") as f:
-        parser = _Parser(file_name, body_hook=hook)
-        records = []
-        while True:
-            chunk = f.read(CHUNK_SIZE)
-            if not chunk:
-                break
-            records.extend(parser.feed(chunk))
-        records.extend(parser.finish())
-    if hook is not None:
-        return [Sequence(prefix + rec.name, rec.sequence) for rec in records]
+        records = list(stream_fasta(f, file_name))
     return [
         Sequence(prefix + rec.name, filter_nucl(rec.sequence))
         for rec in records
@@ -260,6 +210,93 @@ def extract_genome(file_name: str) -> str:
     if ext in (".fa", ".fas", ".fasta"):
         return root
     return base
+
+
+def _native():
+    """The native module where its library loads, else None."""
+    global _native_land
+    if _native_land is None:
+        from phylonium_tpu_torch import native
+
+        try:
+            native.get_lib()
+            _native_land = native
+        except (OSError, native.NativeBuildError):
+            _native_land = False
+    return _native_land or None
+
+
+class GenomeReader:
+    """Reads genomes, each FASTA file in one native pass.
+
+    A file is read whole (``readinto``) into a buffer that the calling
+    thread keeps and reuses, grown to the largest file it has read; then
+    ``phy_fasta_layout`` finds its records by pfasta's rules (each body's
+    span and its count of kept bases) and ``phy_fasta_land`` writes the
+    genome: each body filtered and uppercased as ``filter_nucl`` does, the
+    records joined by '!', straight into one ``bytes`` object of the joined
+    size, which ``Sequence.nucl`` then holds. Both calls run outside the GIL, and that object is the one
+    allocation a genome takes. A file pfasta rejects goes to ``read_fasta``
+    (``_Parser``), which raises the ``FastaError`` it always has, with its
+    line; so does every file where the native library is absent.
+    ``native_files`` and ``fallback_files`` count the files each way took.
+    One reader serves any number of threads.
+    """
+
+    def __init__(self):
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self.native_files = 0
+        self.fallback_files = 0
+
+    def joined(self, file_name: str) -> Sequence:
+        """``join(read_genome(file_name))``: the genome's records joined
+        by '!' under its name."""
+        nucl = self._land(file_name)
+        if nucl is None:
+            with self._lock:
+                self.fallback_files += 1
+            return join(read_genome(file_name))
+        return Sequence(extract_genome(file_name), nucl)
+
+    def _land(self, file_name: str) -> bytes | None:
+        """The joined bytes of one file, or None where it takes the
+        parser."""
+        native = _native()
+        if native is None:
+            return None
+        local = self._local
+        if not hasattr(local, "raw"):
+            local.raw = np.empty(0, np.uint8)
+            local.spans = np.empty((64, 3), np.int64)
+        with open(file_name, "rb", buffering=0) as f:
+            n = self._read_whole(f)
+        raw = local.raw
+        records = native.fasta_layout(raw, n, local.spans)
+        if records > len(local.spans):
+            local.spans = np.empty((records, 3), np.int64)
+            records = native.fasta_layout(raw, n, local.spans)
+        if records < 0:
+            return None
+        nucl = native.fasta_land(raw, local.spans, records)
+        with self._lock:
+            self.native_files += 1
+        return nucl
+
+    def _read_whole(self, f) -> int:
+        """Read the open file to its end into this thread's buffer; its
+        length."""
+        local = self._local
+        # one byte of room: a read that fills the buffer has not seen the end
+        need = os.fstat(f.fileno()).st_size + 1
+        if len(local.raw) < need:
+            local.raw = np.empty(1 << (need - 1).bit_length(), np.uint8)
+        n = 0
+        while got := f.readinto(local.raw[n:]):
+            n += got
+            if n == len(local.raw):  # the file grew since its fstat
+                local.raw = np.concatenate((local.raw, np.empty_like(local.raw)))
+        return n
 
 
 def read_genome(file_name: str) -> Genome:

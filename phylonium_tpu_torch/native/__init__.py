@@ -82,20 +82,19 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint8),
         ]
-        lib.phy_fasta_scan.restype = ctypes.c_int64
-        lib.phy_fasta_scan.argtypes = [
+        lib.phy_fasta_layout.restype = ctypes.c_int64
+        lib.phy_fasta_layout.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint8),
             ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
         ]
-        lib.phy_fasta_filter.restype = ctypes.c_int64
-        lib.phy_fasta_filter.argtypes = [
+        lib.phy_fasta_land.restype = None
+        lib.phy_fasta_land.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_char_p,  # a new bytes object: its own buffer, no copy
         ]
         lib.phy_seqcmp.restype = ctypes.c_int64
         lib.phy_seqcmp.argtypes = [
@@ -197,37 +196,29 @@ def filter_nucl_native(raw: bytes) -> bytes:
     return dst[:kept].tobytes()
 
 
-def fasta_filter_native(chunk: bytes) -> tuple[bytes, int, int]:
-    """Fused FASTA body pass: (ACGT-filtered uppercased bytes, newline
-    count, non-whitespace count) — the read-path contract in
-    io/fasta.read_fasta; one traversal replaces strip + join + filter."""
-    lib = get_lib()
-    src = np.frombuffer(chunk, dtype=np.uint8)
-    dst = np.empty(max(src.size, 1), dtype=np.uint8)
-    nl = ctypes.c_int64(0)
-    nonws = ctypes.c_int64(0)
-    kept = int(
-        lib.phy_fasta_filter(
-            _u8ptr(src), src.size, _u8ptr(dst),
-            ctypes.byref(nl), ctypes.byref(nonws),
-        )
-    )
-    return dst[:kept].tobytes(), int(nl.value), int(nonws.value)
+# a bytes object of n bytes, not filled yet (PyBytes_FromStringAndSize with
+# no source): phy_fasta_land fills it before anything else can see it, as
+# the C API allows for a new object
+_new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_char_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
 
 
-def fasta_scan_native(chunk: bytes) -> tuple[bytes, int]:
-    """One pass over a FASTA body span: (whitespace-stripped bytes,
-    newline count) — the parser contract in io/fasta._Parser.feed."""
-    lib = get_lib()
-    src = np.frombuffer(chunk, dtype=np.uint8)
-    dst = np.empty(max(src.size, 1), dtype=np.uint8)
-    nl = ctypes.c_int64(0)
-    kept = int(
-        lib.phy_fasta_scan(
-            _u8ptr(src), src.size, _u8ptr(dst), ctypes.byref(nl)
-        )
-    )
-    return dst[:kept].tobytes(), int(nl.value)
+def fasta_layout(raw: np.ndarray, n: int, spans: np.ndarray) -> int:
+    """Lay out the FASTA file held in ``raw[:n]`` (phy_fasta_layout) into
+    ``spans``, an int64 array of shape (cap, 3): one row a record, its
+    body's [start, end) and the body's count of canonical bases.
+    Returns the file's record count (more than cap: call again with
+    room), or a code below 0 where pfasta rejects the file."""
+    return int(get_lib().phy_fasta_layout(_u8ptr(raw), n, _i64ptr(spans), len(spans)))
+
+
+def fasta_land(raw: np.ndarray, spans: np.ndarray, records: int) -> bytes:
+    """The genome laid out in ``spans[:records]``: each record's canonical
+    bases, uppercased, the records joined by '!', written straight into
+    one new bytes object of that size (phy_fasta_land)."""
+    out = _new_bytes(None, int(spans[:records, 2].sum()) + records - 1)
+    get_lib().phy_fasta_land(_u8ptr(raw), _i64ptr(spans), records, out)
+    return out
 
 
 def seqcmp(a: np.ndarray, b: np.ndarray) -> int:

@@ -1293,6 +1293,86 @@ static void map_batch_ilp(const Index &idx, i64 threshold, const u8 *qdata,
     }
 }
 
+// ---------------------------------------------------------------------------
+// FASTA bodies
+// ---------------------------------------------------------------------------
+
+// pfasta's whitespace: ' ' and '\t' '\n' '\v' '\f' '\r' (0x09-0x0D)
+inline bool fasta_space(u8 c) { return c == ' ' || (c >= '\t' && c <= '\r'); }
+
+// Does p[0, n) hold a byte that is not whitespace?
+bool fasta_has_word(const u8 *p, i64 n) {
+    for (i64 i = 0; i < n; i++)
+        if (!fasta_space(p[i])) return true;
+    return false;
+}
+
+// The canonical nucleotides (ACGTacgt) of src[0, n), uppercased, into dst
+// (the data model's filter_nucl, reference semantics
+// src/sequence.cxx:109-146).  Writes exactly the kept bytes, so dst may be
+// a destination of the exact filtered size.  Returns the filtered length.
+i64 filter_nucl(const u8 *__restrict__ src, i64 n, u8 *__restrict__ dst) {
+    i64 w = 0;
+#if defined(__AVX512BW__) && defined(__AVX512VBMI2__)
+    const __m512i vA = _mm512_set1_epi8('A'), vC = _mm512_set1_epi8('C');
+    const __m512i vG = _mm512_set1_epi8('G'), vT = _mm512_set1_epi8('T');
+    const __m512i vcase = _mm512_set1_epi8((char)0xDF);
+    for (i64 i = 0; i < n; i += 64) {
+        const i64 rem = n - i;
+        const __mmask64 live =
+            rem >= 64 ? ~0ULL : ((1ULL << rem) - 1);
+        const __m512i up = _mm512_and_si512(
+            _mm512_maskz_loadu_epi8(live, src + i), vcase);
+        const __mmask64 keep =
+            (_mm512_cmpeq_epi8_mask(up, vA) |
+             _mm512_cmpeq_epi8_mask(up, vC) |
+             _mm512_cmpeq_epi8_mask(up, vG) |
+             _mm512_cmpeq_epi8_mask(up, vT)) & live;
+        // compress in a register, then a masked store of the kept bytes
+        // (a compressing store to memory is slow on some cores)
+        const int kept = __builtin_popcountll(keep);
+        const __mmask64 head = kept == 64 ? ~0ULL : ((1ULL << kept) - 1);
+        _mm512_mask_storeu_epi8(dst + w, head,
+                                _mm512_maskz_compress_epi8(keep, up));
+        w += kept;
+    }
+#else
+    u8 keep[256];
+    std::memset(keep, 0, sizeof(keep));
+    for (u8 c : {'A', 'C', 'G', 'T'}) {
+        keep[c] = c;
+        keep[c + 32] = c;  // lowercase folds up
+    }
+    for (i64 i = 0; i < n; i++)
+        if (keep[src[i]]) dst[w++] = keep[src[i]];
+#endif
+    return w;
+}
+
+// The count of canonical nucleotides (ACGTacgt) in src[0, n): the length
+// filter_nucl writes.
+i64 count_nucl(const u8 *src, i64 n) {
+    i64 kept = 0;
+    i64 i = 0;
+#if defined(__AVX512BW__)
+    const __m512i vA = _mm512_set1_epi8('A'), vC = _mm512_set1_epi8('C');
+    const __m512i vG = _mm512_set1_epi8('G'), vT = _mm512_set1_epi8('T');
+    const __m512i vcase = _mm512_set1_epi8((char)0xDF);
+    for (; i + 64 <= n; i += 64) {
+        const __m512i up = _mm512_and_si512(
+            _mm512_loadu_si512((const void *)(src + i)), vcase);
+        kept += __builtin_popcountll(
+            _mm512_cmpeq_epi8_mask(up, vA) | _mm512_cmpeq_epi8_mask(up, vC) |
+            _mm512_cmpeq_epi8_mask(up, vG) | _mm512_cmpeq_epi8_mask(up, vT));
+    }
+#endif
+    for (; i < n; i++) {
+        const u8 up = src[i] & 0xDF;
+        kept += up == 'A' || up == 'C' || up == 'G' || up == 'T';
+    }
+    return kept;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -2156,108 +2236,72 @@ void phy_build_sa(const u8 *s, i64 n, i64 *out) {
     std::memcpy(out, sa.data(), sizeof(i64) * n);
 }
 
-// Keep only ACGT/acgt bytes, uppercased (the data model's filter_nucl,
-// reference semantics src/sequence.cxx:109-146).  Returns the filtered
-// length; one pass, table-driven.
+// Keep only ACGT/acgt bytes, uppercased (data/sequence.filter_nucl).
+// Returns the filtered length.
 i64 phy_filter_nucl(const u8 *__restrict__ src, i64 n,
                     u8 *__restrict__ dst) {
-    u8 keep[256];
-    std::memset(keep, 0, sizeof(keep));
-    for (u8 c : {'A', 'C', 'G', 'T'}) {
-        keep[c] = c;
-        keep[c + 32] = c;  // lowercase folds up
+    return filter_nucl(src, n, dst);
+}
+
+// Where pfasta rejects a file (io/fasta.py words each one, with its line).
+enum : i64 {
+    FASTA_EMPTY = -1,           // the file is empty
+    FASTA_NO_START = -2,        // it does not start with '>'
+    FASTA_EMPTY_NAME = -3,      // a header holds only whitespace
+    FASTA_EMPTY_SEQUENCE = -4,  // a body holds only whitespace
+};
+
+// Lays out one FASTA file held whole in src[0, n) by pfasta's rules
+// (io/fasta.py's _Parser): a record opens at a '>' that starts a line;
+// its header runs to the end of that line, its body to the next record.
+// For each of the first `cap` records writes spans[3k .. 3k+2] = the
+// body's [start, end) and its count of canonical nucleotides.  Returns
+// how many records the file holds (more than `cap`: call again with
+// room), or a FASTA_* code where pfasta rejects the file.
+i64 phy_fasta_layout(const u8 *src, i64 n, i64 *spans, i64 cap) {
+    if (n == 0) return FASTA_EMPTY;
+    if (src[0] != '>') return FASTA_NO_START;
+    i64 records = 0;
+    for (i64 at = 0; at < n; records++) {
+        const i64 h0 = at + 1;
+        const u8 *eol = (const u8 *)std::memchr(src + h0, '\n', n - h0);
+        const i64 h1 = eol ? eol - src : n;
+        if (!fasta_has_word(src + h0, h1 - h0)) return FASTA_EMPTY_NAME;
+        // the body: up to a '>' right after a '\n' (the header's own
+        // '\n' included: src[b0 - 1] is it)
+        const i64 b0 = eol ? h1 + 1 : n;
+        i64 b1 = n;
+        for (i64 p = b0; p < n;) {
+            const u8 *gt = (const u8 *)std::memchr(src + p, '>', n - p);
+            if (gt == nullptr) break;
+            if (gt[-1] == '\n') {
+                b1 = gt - src;
+                break;
+            }
+            p = gt - src + 1;
+        }
+        const i64 kept = count_nucl(src + b0, b1 - b0);
+        if (kept == 0 && !fasta_has_word(src + b0, b1 - b0))
+            return FASTA_EMPTY_SEQUENCE;
+        if (records < cap) {
+            i64 *s = spans + 3 * records;
+            s[0] = b0, s[1] = b1, s[2] = kept;
+        }
+        at = b1;
     }
+    return records;
+}
+
+// Lands the records phy_fasta_layout laid out: each body's canonical
+// nucleotides, uppercased, the records joined by '!', into dst, which
+// holds exactly their sum plus records - 1 bytes.
+void phy_fasta_land(const u8 *src, const i64 *spans, i64 records, u8 *dst) {
     i64 w = 0;
-    for (i64 i = 0; i < n; i++) {
-        u8 mapped = keep[src[i]];
-        dst[w] = mapped;
-        w += mapped != 0;
+    for (i64 k = 0; k < records; k++) {
+        const i64 *s = spans + 3 * k;
+        if (k) dst[w++] = '!';
+        w += filter_nucl(src + s[0], s[1] - s[0], dst + w);
     }
-    return w;
-}
-
-// Fused FASTA body pass: canonical-nucleotide filter (ACGTacgt kept,
-// uppercased) + newline count + non-whitespace count, in ONE traversal.
-// The read phase used to strip whitespace (pass + copy), join, then
-// filter (pass + copy); this collapses them.  *newlines feeds 1-based
-// error line numbers; *nonws feeds pfasta's empty-SEQUENCE check (an
-// all-N body is non-empty input but filters to zero bytes — the parser
-// must not call it empty).  Returns the filtered length.
-i64 phy_fasta_filter(const u8 *__restrict__ src, i64 n,
-                     u8 *__restrict__ dst, i64 *newlines, i64 *nonws) {
-    i64 w = 0, nl = 0, body = 0;
-#if defined(__AVX512BW__) && defined(__AVX512VBMI2__)
-    const __m512i vA = _mm512_set1_epi8('A'), vC = _mm512_set1_epi8('C');
-    const __m512i vG = _mm512_set1_epi8('G'), vT = _mm512_set1_epi8('T');
-    const __m512i vcase = _mm512_set1_epi8((char)0xDF);
-    const __m512i vnl = _mm512_set1_epi8('\n');
-    const __m512i vsp = _mm512_set1_epi8(' ');
-    const __m512i vtab = _mm512_set1_epi8('\t');   // 0x09
-    const __m512i vcr = _mm512_set1_epi8('\r');    // 0x0D
-    i64 i = 0;
-    for (; i < n; i += 64) {
-        const i64 rem = n - i;
-        const __mmask64 live =
-            rem >= 64 ? ~0ULL : ((1ULL << rem) - 1);
-        const __m512i x = _mm512_maskz_loadu_epi8(live, src + i);
-        const __m512i up = _mm512_and_si512(x, vcase);
-        __mmask64 keep =
-            (_mm512_cmpeq_epi8_mask(up, vA) |
-             _mm512_cmpeq_epi8_mask(up, vC) |
-             _mm512_cmpeq_epi8_mask(up, vG) |
-             _mm512_cmpeq_epi8_mask(up, vT)) & live;
-        _mm512_mask_compressstoreu_epi8(dst + w, keep, up);
-        w += __builtin_popcountll(keep);
-        nl += __builtin_popcountll(_mm512_cmpeq_epi8_mask(x, vnl) & live);
-        // ws = ' ' or 0x09..0x0D ('\t','\n','\v','\f','\r')
-        const __mmask64 ws =
-            (_mm512_cmpeq_epi8_mask(x, vsp) |
-             (_mm512_cmp_epu8_mask(x, vtab, _MM_CMPINT_NLT) &
-              _mm512_cmp_epu8_mask(x, vcr, _MM_CMPINT_LE))) & live;
-        body += (rem >= 64 ? 64 : rem) - __builtin_popcountll(ws);
-    }
-#else
-    u8 keep[256];
-    std::memset(keep, 0, sizeof(keep));
-    for (u8 c : {'A', 'C', 'G', 'T'}) {
-        keep[c] = c;
-        keep[c + 32] = c;
-    }
-    bool ws[256] = {};
-    ws[' '] = ws['\t'] = ws['\n'] = ws['\r'] = ws['\v'] = ws['\f'] = true;
-    for (i64 i = 0; i < n; i++) {
-        u8 c = src[i];
-        u8 mapped = keep[c];
-        dst[w] = mapped;
-        w += mapped != 0;
-        nl += c == '\n';
-        body += !ws[c];
-    }
-#endif
-    *newlines = nl;
-    *nonws = body;
-    return w;
-}
-
-// FASTA body scan: strip whitespace and count newlines in ONE pass
-// (the parser needs both — stripped sequence bytes for the record, the
-// newline count for 1-based error line numbers; doing them as separate
-// Python/numpy passes dominated the read phase).  Returns the stripped
-// length; *newlines gets the '\n' count.  Whitespace set matches
-// python's bytes.translate delete set in io/fasta._strip_ws.
-i64 phy_fasta_scan(const u8 *__restrict__ src, i64 n,
-                   u8 *__restrict__ dst, i64 *newlines) {
-    bool ws[256] = {};
-    ws[' '] = ws['\t'] = ws['\n'] = ws['\r'] = ws['\v'] = ws['\f'] = true;
-    i64 w = 0, nl = 0;
-    for (i64 i = 0; i < n; i++) {
-        u8 c = src[i];
-        dst[w] = c;
-        w += !ws[c];
-        nl += c == '\n';
-    }
-    *newlines = nl;
-    return w;
 }
 
 // Scalar mismatch kernels (host oracle / benchmarking):
