@@ -422,17 +422,21 @@ def _read_all(file_names: list[str], workers: int, compact: bool, shipper=None,
               read=None):
     """Read every genome, joined, in order, a bounded few files ahead, each
     file in one native pass (``GenomeReader``); with ``compact``, 2-bit
-    compact each one as it arrives; hand each to ``shipper`` in query
-    order (compacted first: the shipper then works from the per-genome
-    packs). ``read``, the read's span, gets the files, the bases, the
-    seconds spent waiting on the read pool, and how many files the native
-    pass landed (``native_files``) and how many took the parser
-    (``fallback_files``), also where the read fails."""
+    compact each one on the pool's thread that read it; hand each to
+    ``shipper`` in query order (compacted first: the shipper then works
+    from the per-genome packs). ``read``, the read's span, gets the files,
+    the bases, the seconds spent waiting on the read pool, and how many
+    files the native pass landed (``native_files``) and how many took the
+    parser (``fallback_files``), also where the read fails."""
     reader = GenomeReader()
 
-    def arrived(seq):
+    def load(name):
+        seq = reader.joined(name)
         if compact:
             seq.compact()
+        return seq
+
+    def arrived(seq):
         if shipper is not None:
             if seq.compacted:
                 shipper.add_seq(seq)
@@ -454,7 +458,7 @@ def _read_all(file_names: list[str], workers: int, compact: bool, shipper=None,
                 return seq
 
             for name in file_names:
-                pending.append(pool.submit(reader.joined, name))
+                pending.append(pool.submit(load, name))
                 if len(pending) >= 2 * workers:
                     queries.append(arrived(next_genome()))
             while pending:

@@ -15,6 +15,15 @@ genome's homologies as the native mapper's raw [H, 5] int64 rows.
   (core/stream.py), which builds the packed rows on ``cfg.device``; the
   host never holds the pileup.
 
+Spans (utils/profile.py): ``lowmem`` over the loop (``attrs``: the
+mapping ``groups``, ``group_rows``, ``compact_mb``, the compacted panel
+the CLI holds, and ``unpacked_peak_mb``, the most unpacked bytes alive at
+once: the group being mapped, the groups in the feeder's queue and the
+one its worker holds; the native mapper's own copy of the chunk it maps
+is not counted), and in it a ``lowmem.group`` a group (``lo``, ``rows``,
+``bases``) holding ``lowmem.unpack``, ``lowmem.map`` and
+``lowmem.feed``, the wait to hand the group to the feeder.
+
 Through the device server (``serve.client.devd_enabled``: by default on
 a card in a single process) the feeder sends each group to the server,
 which builds and counts the panel there, and this process imports no
@@ -36,6 +45,8 @@ several ranks on the serial mesh route (parallel/).
 from __future__ import annotations
 
 import os
+import threading
+import weakref
 
 import numpy as np
 
@@ -47,6 +58,7 @@ from phylonium_tpu_torch.data.sequence import Sequence
 from phylonium_tpu_torch.native import pair_counts_range
 from phylonium_tpu_torch.parallel.multihost import world
 from phylonium_tpu_torch.serve.client import devd_enabled
+from phylonium_tpu_torch.utils import profile
 from phylonium_tpu_torch.utils.platform import carrier, check_device, resolve_device
 from phylonium_tpu_torch.utils.profile import phase
 from phylonium_tpu_torch.utils.progress import ProgressBar
@@ -178,6 +190,27 @@ def pair_counts_windowed(
     return subs, homs
 
 
+class _Unpacked:
+    """Unpacked bytes alive: added as the loop unpacks a compacted genome,
+    taken off when its last holder (the loop, the feeder's queue or its
+    worker) drops it; ``peak``, the most at once."""
+
+    def __init__(self):
+        self.live = self.peak = 0
+        self._lock = threading.Lock()
+
+    def add(self, arr: np.ndarray) -> None:
+        owner = arr.base if isinstance(arr.base, np.ndarray) else arr
+        with self._lock:
+            self.live += owner.nbytes
+            self.peak = max(self.peak, self.live)
+        weakref.finalize(owner, self._drop, owner.nbytes).atexit = False
+
+    def _drop(self, nbytes: int) -> None:
+        with self._lock:
+            self.live -= nbytes
+
+
 def map_count_lowmem(
     ref, threshold: int, queries: list[Sequence], cfg: TorchRunConfig
 ) -> tuple[np.ndarray, np.ndarray, dict, dict]:
@@ -207,22 +240,37 @@ def map_count_lowmem(
 
     timings: dict = {}
     harrs: list = [None] * n
+    unpacked = _Unpacked()
     bar = ProgressBar(f"Mapping {n} sequences", n, enabled=cfg.progress_enabled)
-    with phase(timings, "map+feed"):
+    with phase(timings, "map+feed"), profile.span("lowmem", attrs={
+        "groups": -(-n // group), "group_rows": group,
+        "compact_mb": sum(q.nbytes for q in queries) / 1e6,
+    }) as loop:
         try:
             for lo in range(0, n, group):
                 hi = min(lo + group, n)
-                batch = [queries[j].as_array() for j in range(lo, hi)]
-                out = map_batch_native(ref._native, batch, threshold, bar, lo, raw=True)
-                harrs[lo:hi] = out
-                if feeder is not None:
-                    feeder.feed(batch, out)
-                bar.update(hi)
-                del batch  # the feeder's queue holds the group until it is built
+                with profile.span("lowmem.group", attrs={"lo": lo, "rows": hi - lo}) as g:
+                    with profile.span("lowmem.unpack"):
+                        batch = [queries[j].as_array() for j in range(lo, hi)]
+                    for j in range(lo, hi):
+                        if queries[j].compacted:  # else a view of the genome's bytes
+                            unpacked.add(batch[j - lo])
+                    g.note("bases", sum(a.nbytes for a in batch))
+                    with profile.span("lowmem.map"):
+                        out = map_batch_native(ref._native, batch, threshold, bar, lo,
+                                               raw=True)
+                    harrs[lo:hi] = out
+                    if feeder is not None:
+                        # blocks while MAX_BACKLOG groups wait for the worker
+                        with profile.span("lowmem.feed"):
+                            feeder.feed(batch, out)
+                    bar.update(hi)
+                    del batch  # the feeder's queue holds the group until it is built
         except BaseException:
             if feeder is not None:
                 feeder.cancel()
             raise
+        loop.note("unpacked_peak_mb", unpacked.peak / 1e6)
         bar.finish()
 
     num_comparisons = (n * n - n) // 2

@@ -87,6 +87,11 @@ def gc_content(nucl: bytes) -> float:
 
 # ASCII byte per 2-bit-or-separator code (codes 0-4; see compact())
 _CODE_BYTES = np.frombuffer(b"ACGT!", dtype=np.uint8)
+# the four ASCII bytes of each packed byte (code k in bits 2k, 2k+1), as
+# one uint32 each: a packed genome unpacks in one lookup a byte
+_QUAD_BYTES = np.stack(
+    [_CODE_BYTES[(np.arange(256) >> (2 * k)) & 3] for k in range(4)], axis=1
+).view(np.uint32).reshape(256)
 
 
 class Sequence:
@@ -123,8 +128,7 @@ class Sequence:
     def nucl(self) -> bytes:
         if self._nucl is not None:
             return self._nucl
-        codes = self._codes()
-        return _CODE_BYTES[codes].tobytes()
+        return self.as_array().tobytes()
 
     @nucl.setter
     def nucl(self, value: bytes) -> None:
@@ -174,6 +178,14 @@ class Sequence:
     def compacted(self) -> bool:
         return self._packed is not None
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes the storage holds: the 2-bit pack and the separator
+        positions when compacted, else the ASCII bytes."""
+        if self._packed is not None:
+            return self._packed.nbytes + self._seps.nbytes
+        return len(self._nucl)
+
     def _codes(self, start: int = 0, stop: int | None = None) -> np.ndarray:
         """uint8 codes 0-4 (A C G T '!') for [start, stop) from the
         packed form."""
@@ -222,7 +234,9 @@ class Sequence:
         """uint8 view of the nucleotides (zero-copy on byte storage,
         reconstructed on compacted storage)."""
         if self._nucl is None:
-            return _CODE_BYTES[self._codes()]
+            arr = _QUAD_BYTES[self._packed].view(np.uint8)[: self._length]
+            arr[self._seps] = SEPARATOR
+            return arr
         return np.frombuffer(self._nucl, dtype=np.uint8)
 
     def gc_content(self) -> float:
