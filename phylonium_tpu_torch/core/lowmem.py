@@ -19,10 +19,12 @@ Spans (utils/profile.py): ``lowmem`` over the loop (``attrs``: the
 mapping ``groups``, ``group_rows``, ``compact_mb``, the compacted panel
 the CLI holds, and ``unpacked_peak_mb``, the most unpacked bytes alive at
 once: the group being mapped, the groups in the feeder's queue and the
-one its worker holds; the native mapper's own copy of the chunk it maps
-is not counted), and in it a ``lowmem.group`` a group (``lo``, ``rows``,
-``bases``) holding ``lowmem.unpack``, ``lowmem.map`` and
-``lowmem.feed``, the wait to hand the group to the feeder.
+one its worker holds; the native mapper reads the group where it lies),
+and in it a ``lowmem.group`` a group (``lo``, ``rows``, ``bases``)
+holding ``lowmem.unpack``, ``lowmem.map`` (``staged_mb``: what the
+native mapper had to copy, 0 where every genome is a C-contiguous
+``uint8`` array) and ``lowmem.feed``, the wait to hand the group to the
+feeder.
 
 Through the device server (``serve.client.devd_enabled``: by default on
 a card in a single process) the feeder sends each group to the server,
@@ -105,9 +107,8 @@ def should_lowmem(n: int, total_bp: int, cfg: RunConfig, ref=None) -> bool:
 
 def group_rows_for(n: int, avg_len: int) -> int:
     """Mapping-group size capped so one group's unpacked bytes stay
-    within ~1/16 of the budget (a group exists as the batch list PLUS
-    the native mapper's contiguous copy, and the feeder may hold two
-    more in its bounded queue)."""
+    within ~1/16 of the budget (the feeder may hold two more groups in
+    its bounded queue and a third in its worker)."""
     cap = max(4, int(lowmem_budget() // 16) // max(avg_len, 1))
     return max(4, min(effective_group_rows(n), cap))
 
@@ -256,9 +257,11 @@ def map_count_lowmem(
                         if queries[j].compacted:  # else a view of the genome's bytes
                             unpacked.add(batch[j - lo])
                     g.note("bases", sum(a.nbytes for a in batch))
-                    with profile.span("lowmem.map"):
+                    with profile.span("lowmem.map") as m:
+                        staged = ref._native.staged_bytes
                         out = map_batch_native(ref._native, batch, threshold, bar, lo,
                                                raw=True)
+                        m.note("staged_mb", (ref._native.staged_bytes - staged) / 1e6)
                     harrs[lo:hi] = out
                     if feeder is not None:
                         # blocks while MAX_BACKLOG groups wait for the worker

@@ -1070,6 +1070,9 @@ def _process(
         LAST_RUN_INFO["stream_groups"] = 0
 
     LAST_RUN_INFO["timings"] = timings
+    if ref._native is not None:
+        # bytes the native mapper copied: 0 where it read every genome in place
+        LAST_RUN_INFO["map_staged_mb"] = ref._native.staged_bytes / 1e6
     torch = loaded("torch")
     LAST_RUN_INFO["cuda_initialized"] = torch is not None and torch.cuda.is_initialized()
     for prefix, name in _COUNTED.items():

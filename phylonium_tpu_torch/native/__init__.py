@@ -62,7 +62,7 @@ def get_lib() -> ctypes.CDLL:
         lib.phy_map_queries.restype = ctypes.c_int64
         lib.phy_map_queries.argtypes = [
             ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
             ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64,
             ctypes.c_int64,
@@ -412,6 +412,9 @@ class NativeESA:
 
     def __init__(self, S: np.ndarray):
         self._lib = get_lib()
+        # bytes ``map_queries`` copied because a genome was not a
+        # C-contiguous uint8 array
+        self.staged_bytes = 0
         S = np.ascontiguousarray(S, dtype=np.uint8)
         self._S = S  # keep alive
         self._handle = self._lib.phy_index_build(_u8ptr(S), S.size)
@@ -470,13 +473,13 @@ class NativeESA:
         """Batch-map ``queries``; ``progress_out`` (shape-[1] int64) is
         incremented per completed query for live progress polling.
 
-        The native call is chunked (default 32 queries): the wrapper
-        copies the batch's text into one buffer BEFORE mapping starts,
-        so chunks that fit in L3 are still cache-resident when the
-        latency-bound chain probes read them, while a whole-panel copy
-        is long evicted by the time the mapper reaches its tail.
-        Outputs are identical for any chunking (the mapper is
-        per-query); tunable via PHYLONIUM_TPU_MAP_BATCH, 0 = one call.
+        The mapper reads each genome where it lies, through one pointer
+        and one length a genome: a C-contiguous ``uint8`` array is not
+        copied. Any other array is copied alone, and its bytes are added
+        to ``staged_bytes``. The native call is chunked (default 32
+        queries): a chunk bounds one OpenMP region, whose threads split
+        its genomes. Outputs are identical for any chunking (the mapper
+        is per-query); tunable via PHYLONIUM_TPU_MAP_BATCH, 0 = one call.
         """
         import os
 
@@ -496,20 +499,24 @@ class NativeESA:
                     )
                 )
             return out
-        from phylonium_tpu_torch.utils.bigalloc import empty as big_empty
-
-        offsets = np.zeros(len(queries) + 1, dtype=np.int64)
-        np.cumsum([q.size for q in queries], out=offsets[1:])
-        qdata = big_empty((int(offsets[-1]),), np.uint8)
-        for q, lo, hi in zip(queries, offsets, offsets[1:]):
-            qdata[lo:hi] = np.ascontiguousarray(q, dtype=np.uint8)
-        counts = np.zeros(len(queries), dtype=np.int64)
+        n = len(queries)
+        arrays = []  # held until the call returns: the mapper reads them
+        for q in queries:
+            if q.dtype != np.uint8 or not q.flags.c_contiguous:
+                q = np.ascontiguousarray(q, dtype=np.uint8)
+                self.staged_bytes += q.nbytes
+            arrays.append(q)
+        qptrs = (ctypes.POINTER(ctypes.c_uint8) * max(n, 1))(
+            *[_u8ptr(a) for a in arrays]
+        )
+        qlens = np.array([a.size for a in arrays], dtype=np.int64)
+        counts = np.zeros(n, dtype=np.int64)
         buf = ctypes.POINTER(ctypes.c_int64)()
         self._lib.phy_map_queries(
             self._handle,
-            _u8ptr(qdata),
-            _i64ptr(offsets),
-            len(queries),
+            qptrs,
+            _i64ptr(qlens),
+            n,
             threshold,
             _i64ptr(counts),
             ctypes.byref(buf),

@@ -1197,8 +1197,9 @@ static bool chain_step(const Index &idx, i64 threshold, ChainRun &c) {
 }
 
 // map queries [j0, j1) with K interleaved chains on this thread
-static void map_batch_ilp(const Index &idx, i64 threshold, const u8 *qdata,
-                          const i64 *offsets, i64 j0, i64 j1,
+static void map_batch_ilp(const Index &idx, i64 threshold,
+                          const u8 *const *qptrs, const i64 *qlens,
+                          i64 j0, i64 j1,
                           std::vector<std::vector<Hom>> &results,
                           i64 *progress) {
     // chains in flight per thread: enough to cover ~3 dependent-miss
@@ -1217,8 +1218,8 @@ static void map_batch_ilp(const Index &idx, i64 threshold, const u8 *qdata,
         if (next >= j1) return false;
         i64 j = next++;
         c = ChainRun{};
-        c.q = qdata + offsets[j];
-        c.qlen = offsets[j + 1] - offsets[j];
+        c.q = qptrs[j];
+        c.qlen = qlens[j];
         c.qidx = j;
         c.ph = ChainRun::NEXT;
         return true;
@@ -1437,13 +1438,15 @@ i64 phy_map_query(void *h, const u8 *q, i64 qlen, i64 threshold, i64 **out) {
     return (i64)hv.size();
 }
 
-// Batch mapping with OpenMP over queries.  Queries are concatenated in
-// `qdata` with offsets[j] .. offsets[j+1].  Returns a malloc'd buffer of
-// all homologies concatenated; counts[j] receives each query's count.
-// `progress` (nullable) is atomically incremented per completed query so
-// the caller can poll it for a live progress bar.
-i64 phy_map_queries(void *h, const u8 *qdata, const i64 *offsets, i64 nq,
-                    i64 threshold, i64 *counts, i64 **out,
+// Batch mapping with OpenMP over queries.  Query j is read where it lies,
+// qptrs[j][0, qlens[j]), with no slack past its last byte (`lcp` is bounded
+// by the query's length, `lead_code` gates its 16-byte load on it).
+// Returns a malloc'd buffer of all homologies concatenated; counts[j]
+// receives each query's count.  `progress` (nullable) is atomically
+// incremented per completed query so the caller can poll it for a live
+// progress bar.
+i64 phy_map_queries(void *h, const u8 *const *qptrs, const i64 *qlens,
+                    i64 nq, i64 threshold, i64 *counts, i64 **out,
                     i64 *progress) {
     const Index &idx = *static_cast<Index *>(h);
     std::vector<std::vector<Hom>> results(nq);
@@ -1464,18 +1467,17 @@ i64 phy_map_queries(void *h, const u8 *qdata, const i64 *offsets, i64 nq,
             const i64 j0 = t * per;
             const i64 j1 = std::min(nq, j0 + per);
             if (j0 < j1)
-                map_batch_ilp(idx, threshold, qdata, offsets, j0, j1,
+                map_batch_ilp(idx, threshold, qptrs, qlens, j0, j1,
                               results, progress);
         }
 #else
-        map_batch_ilp(idx, threshold, qdata, offsets, 0, nq, results,
+        map_batch_ilp(idx, threshold, qptrs, qlens, 0, nq, results,
                       progress);
 #endif
     } else {
 #pragma omp parallel for schedule(dynamic)
         for (i64 j = 0; j < nq; j++) {
-            results[j] = map_one(idx, threshold, qdata + offsets[j],
-                                 offsets[j + 1] - offsets[j]);
+            results[j] = map_one(idx, threshold, qptrs[j], qlens[j]);
             if (progress) {
 #pragma omp atomic
                 (*progress)++;

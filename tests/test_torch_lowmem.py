@@ -65,6 +65,8 @@ def test_lowmem_cli_byte_identical(tmp_path, monkeypatch, contigs, backend):
     lowmem = LAST_RUN_INFO["lowmem"]
     assert lowmem["group_rows"] == 8 and lowmem["homologies"] > 0
     assert "map+feed" in LAST_RUN_INFO["timings"]
+    # the unpacked genomes are mapped where they lie
+    assert LAST_RUN_INFO["map_staged_mb"] == 0
     if backend == "host":
         assert LAST_RUN_INFO["compare_carrier"] == "host"
         assert LAST_RUN_INFO["stream_groups"] == 0
@@ -77,6 +79,14 @@ def test_lowmem_cli_byte_identical(tmp_path, monkeypatch, contigs, backend):
     # the second pass re-processes the compacted sequences
     rc4, low_2pass = _run(main, ["-2", *args])
     assert rc4 == 0 and low_2pass == serial_2pass
+    if backend == "cpu":
+        # the streamed route maps the genomes' bytes in place too
+        monkeypatch.delenv("PHYLONIUM_TPU_LOWMEM")
+        monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
+        rc5, streamed = _run(main, args)
+        assert rc5 == 0 and streamed == serial
+        assert "lowmem" not in LAST_RUN_INFO and LAST_RUN_INFO["stream_groups"] > 0
+        assert LAST_RUN_INFO["map_staged_mb"] == 0
 
 
 def test_lowmem_is_predicted_from_file_sizes(tmp_path, monkeypatch):
