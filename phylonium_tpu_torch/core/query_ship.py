@@ -23,10 +23,10 @@ match whenever the bound holds. Raw genomes are packed by the port's
 for bit what the feeder would have packed.
 
 The worker resolves the device and copies each group through a pinned
-buffer on its own CUDA stream, recording an event that the feeder's
-stream waits on. It also imports torch, on its own thread (the JAX
-shipper initializes jax there): this module loads without torch, and so
-does a CLI whose run never reaches the card. CUDA
+buffer on its own CUDA stream (``ops.states.to_device``), whose end's
+event the feeder's stream waits on. It also imports torch, on its own
+thread (the JAX shipper initializes jax there): this module loads
+without torch, and so does a CLI whose run never reaches the card. CUDA
 events time the copy alone, and each group of at least 4 MB folds
 its rate into the calibration store (utils/calibration.py,
 ``link_mb_s``) for the next run's gates. On a CPU device the groups stay
@@ -62,6 +62,7 @@ because the port adds a device to feed.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import itertools
 import os
@@ -264,7 +265,6 @@ class QueryShipper:
         self.device = device
         self.group_rows = effective_group_rows(n) if group_rows is None else group_rows
         self.ref_len_bound = ref_len_bound
-        self.transport = transport
         self.run_id = new_run_id()
         self.cancelled = False
         self.hits = 0  # pieces the server's content cache held (0 bytes shipped)
@@ -281,7 +281,8 @@ class QueryShipper:
         self._cond = threading.Condition()
         self._q: queue.Queue = queue.Queue()
         self._worker = threading.Thread(
-            target=self._drain, daemon=True, name="query-shipper"
+            target=self._drain, args=(self._devd if transport == "devd" else self._local,),
+            daemon=True, name="query-shipper",
         )
         self._worker.start()
 
@@ -331,18 +332,12 @@ class QueryShipper:
             traceback.print_exc()
         self._error = e
 
-    def _drain(self) -> None:
-        if self.transport == "devd":
-            self._drain_devd()
-            return
+    def _drain(self, connect) -> None:
+        """The worker: ``connect`` gives the function that ships each piece."""
         try:
-            import torch
-
-            device = resolve_device(self.device)
+            ship = connect()
         except Exception as e:  # noqa: BLE001 — raised by take()
             self._error = e
-        cuda = self._error is None and device.type == "cuda"
-        stream = None
         while True:
             item = self._q.get()
             try:
@@ -350,35 +345,7 @@ class QueryShipper:
                     return
                 if self.cancelled or self._error is not None:
                     continue
-                key, gidx, items = item
-                with profile.span("ship.piece", attrs={"gidx": gidx}) as piece:
-                    if items and not isinstance(items[0], np.ndarray):
-                        packed, bases, seps = _payload_from_compacted(items)
-                    else:
-                        packed, bases, seps = group_payload(items)
-                    piece.note("bytes", packed.nbytes)
-                    host = torch.from_numpy(packed.view(np.int32))
-                    event = None
-                    if cuda:
-                        with torch.cuda.device(device):
-                            if stream is None:
-                                stream = torch.cuda.Stream(device)
-                            start = torch.cuda.Event(enable_timing=True)
-                            event = torch.cuda.Event(enable_timing=True)
-                            with torch.cuda.stream(stream):
-                                pinned = host.pin_memory()
-                                start.record(stream)
-                                words = pinned.to(device, non_blocking=True)
-                                event.record(stream)
-                        event.synchronize()
-                        seconds = start.elapsed_time(event) / 1e3
-                        self._store.record_link(packed.nbytes, seconds)
-                        self._seconds += seconds
-                    else:
-                        words = host
-                    self._bytes += packed.nbytes
-                    with self._cond:
-                        self._pieces[key] = Resident(words, bases, seps, event)
+                ship(*item)
             except Exception as e:  # noqa: BLE001 — raised by take()
                 self._give_up(e)
             finally:
@@ -386,33 +353,49 @@ class QueryShipper:
                     self._cond.notify_all()
                 self._q.task_done()
 
-    def _drain_devd(self) -> None:
-        """The worker over the device server: ``qhave``, then ``qgroup`` on
-        a miss (the port of phylonium_tpu/core/query_ship.py:300-381)."""
-        client = None
-        try:
-            from phylonium_tpu_torch.serve.client import get_client
+    def _local(self):
+        """The local transport: the device resolved (torch imported on this
+        thread) and, on a card, the shipper's own stream."""
+        import torch
 
+        device = resolve_device(self.device)
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        return functools.partial(self._ship_local, device, stream)
+
+    def _ship_local(self, device, stream, key, gidx: int, items: list) -> None:
+        """One piece packed and copied to ``device`` on ``stream`` in a
+        ``ship.piece`` span; on a card the copy's CUDA-event time goes to
+        the calibration store."""
+        from phylonium_tpu_torch.ops.states import to_device
+
+        with profile.span("ship.piece", attrs={"gidx": gidx}) as piece:
+            if items and not isinstance(items[0], np.ndarray):
+                packed, bases, seps = _payload_from_compacted(items)
+            else:
+                packed, bases, seps = group_payload(items)
+            piece.note("bytes", packed.nbytes)
+            words, seconds, event = to_device(packed.view(np.int32), device, stream,
+                                              timed=True)
+            if seconds is not None:
+                self._store.record_link(packed.nbytes, seconds)
+                self._seconds += seconds
+            self._bytes += packed.nbytes
+            with self._cond:
+                self._pieces[key] = Resident(words, bases, seps, event)
+
+    def _devd(self):
+        """The device server's transport (the port of
+        phylonium_tpu/core/query_ship.py:300-381): connected, each piece
+        by ``_ship_devd``."""
+        from phylonium_tpu_torch.serve.client import get_client
+
+        try:
             client = get_client(str(self.device))
-            self._trace("device server connected")
-        except Exception as e:  # noqa: BLE001 — raised by take()
+        except Exception as e:
             self._trace(f"device server unavailable ({e!r})")
-            self._error = e
-        while True:
-            item = self._q.get()
-            try:
-                if item is None:
-                    return
-                if self.cancelled or self._error is not None:
-                    continue
-                key, gidx, items = item
-                self._ship_devd(client, key, gidx, items)
-            except Exception as e:  # noqa: BLE001 — raised by take()
-                self._give_up(e)
-            finally:
-                with self._cond:
-                    self._cond.notify_all()
-                self._q.task_done()
+            raise
+        self._trace("device server connected")
+        return functools.partial(self._ship_devd, client)
 
     def _ship_devd(self, client, key, gidx: int, items: list) -> None:
         """One piece to the server in a ``ship.piece`` span: its content

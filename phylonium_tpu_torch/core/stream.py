@@ -4,14 +4,12 @@ The port of the in-process branch of the JAX package's
 phylonium_tpu/core/stream.py (``DeviceRowFeeder``, ``map_pileup_streamed``).
 As each group of queries finishes mapping, a worker thread preps the
 group on the host (2-bit codes, interval records, overlay;
-``ops.pileup_device.prepare_group``), copies those arrays to the card
-through pinned staging buffers on a side CUDA stream, and launches the
-pileup-build kernel there, which writes the group's packed rows straight
-into one preallocated [N, W] panel while the host maps the next group.
-``built()`` makes the current stream wait on the groups' events and
-returns the panel; ``finish()`` counts it (``ops.pair_count.pair_counts_rows``).
-The same feeder builds the serial path's device pileup
-(``ops.pileup_device.build_pileup_device``). Given the CLI's early query
+``ops.pileup_device.prepare_group``) and builds it into one
+preallocated [N, W] panel (``ops.pileup_device.DevicePanel``: the
+arrays copied to the card through pinned memory on a side CUDA stream,
+the pileup-build kernel launched there) while the host maps the next
+group. ``built()`` returns the panel with the current stream ordered
+after the builds; ``finish()`` counts it. Given the CLI's early query
 shipper (core/query_ship.py), the worker takes each group's 2-bit codes
 resident on the card and preps only the records and the overlay.
 
@@ -32,9 +30,8 @@ What the card changes against the JAX design:
 On a CPU device the same worker builds with the plain PyTorch version
 into a CPU panel; the tests drive the whole feeder that way.
 
-This module loads without torch: a feeder imports it in its constructor,
-on the local route only, and the device modules (``ops.pileup_device``,
-``ops.pair_count``) where it builds and counts.
+This module loads without torch: a feeder imports the device modules
+(``ops.pileup_device``) in its constructor, on the local route only.
 
 With ``devd`` (``serve.client.devd_enabled``, the device server: the
 default of a single-process run on a card) the feeder holds no panel
@@ -42,7 +39,7 @@ and touches no CUDA: the worker preps each group as above and sends its
 records and overlay (and its 2-bit words, unless the shipper parked
 them in the server: ``take`` gives a ``query_ship.DevdGroup``) as one
 ``group`` request, and ``finish()`` asks the server to count the panel it
-built (``_drain_devd``, the port of the JAX feeder's). Each feeder sends
+built (the port of the JAX feeder's devd branch). Each feeder sends
 a generation of its own, from a process-wide counter, so that the second
 pass of ``-2`` (the same run id, its pieces still resident) starts a
 fresh panel in the server.
@@ -62,6 +59,7 @@ request T s`` for each group it sends, and ``row feeder: finish wire T s
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import queue
@@ -73,8 +71,14 @@ import numpy as np
 from phylonium_tpu_torch.core.homology import Homology
 from phylonium_tpu_torch.core.map_native import map_batch_native
 from phylonium_tpu_torch.index.esa import ESAIndex
-from phylonium_tpu_torch.ops.pileup_groups import prepare_group, row_groups
-from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, packed_width
+# effective_group_rows and DEFAULT_GROUP_ROWS are re-exported under this
+# module's names, where the streamed path's callers find them
+from phylonium_tpu_torch.ops.pileup_groups import (  # noqa: F401
+    DEFAULT_GROUP_ROWS,
+    effective_group_rows,
+    prepare_group,
+    row_groups,
+)
 from phylonium_tpu_torch.utils import profile
 from phylonium_tpu_torch.utils.profile import GROUP_RANGE
 from phylonium_tpu_torch.utils.progress import ProgressBar
@@ -87,26 +91,11 @@ MAX_BACKLOG = 2
 # process (an object's id can, once the object is gone)
 _GENERATIONS = itertools.count(1)
 
-DEFAULT_GROUP_ROWS = 128
-
 
 def _trace(msg: str) -> None:
     """A PHYLONIUM_TPU_DEBUG line on stderr, as the JAX feeder's."""
     if os.environ.get("PHYLONIUM_TPU_DEBUG"):
         print(f"row feeder: {msg}", file=sys.stderr)
-
-
-def effective_group_rows(n: int) -> int:
-    """Feeding-group size for an ``n``-genome panel: the 128-row default
-    capped so every panel splits into at least ~4 groups (a single group
-    would finish mapping exactly when mapping ends: nothing to overlap).
-    The 8-row floor keeps per-group fixed costs amortized.
-    ``PHYLONIUM_TPU_STREAM_GROUP`` pins an explicit size. A copy of the
-    JAX package's (phylonium_tpu/core/stream.py:41)."""
-    env = os.environ.get("PHYLONIUM_TPU_STREAM_GROUP")
-    if env:
-        return int(env)
-    return min(DEFAULT_GROUP_ROWS, max(8, -(-n // 4)))
 
 
 class DeviceRowFeeder:
@@ -121,8 +110,8 @@ class DeviceRowFeeder:
     takes one.
 
     ``rows`` (default ``n``) sizes the panel: rows ``n`` and beyond hold
-    packed INVALID, written on the feeder's stream before any build, and
-    count nothing (the pod feeder's padding rows, parallel/stream_mp.py).
+    packed INVALID and count nothing (the pod feeder's padding rows,
+    parallel/stream_mp.py).
 
     ``shipper`` (core/query_ship.QueryShipper) holds groups whose 2-bit
     codes were copied to the device while the files were read: the
@@ -131,11 +120,14 @@ class DeviceRowFeeder:
     as the shipper cut them. What the shipper's worker hit is raised
     here.
 
-    ``devd``: the device server builds and counts the panel (``rows``
-    must be ``n``; ``device`` is then a device name, and no torch is
-    imported); ``devd_count_s`` is then the server's count time,
-    ``devd_wait_s`` this process's wait for ``finish`` and ``devd_reply``
-    the server's reply (its launches, memory, pid).
+    Each group goes, as it is prepped, to one destination chosen here:
+    ``panel`` (``ops.pileup_device.DevicePanel``) in this process, or,
+    with ``devd``, the device server, which builds and counts the panel
+    (``rows`` must be ``n``; ``device`` is then a device name, ``panel``
+    is None and no torch is imported); ``devd_count_s`` is then the
+    server's count time, ``devd_wait_s`` this process's wait for
+    ``finish`` and ``devd_reply`` the server's reply (its launches,
+    memory, pid).
     """
 
     def __init__(self, n: int, ref_len: int, device,
@@ -146,13 +138,11 @@ class DeviceRowFeeder:
         self.n = n
         self.ref_len = ref_len
         self.device = device
-        self.width = packed_width(ref_len)
         self.groups = 0  # groups the worker built (sent to the server)
         self._shipper = shipper
         self.taken = 0  # groups built from the shipper's resident codes
         self.repacked = 0  # groups the shipper did not hold, packed here
         self._rows_done = 0
-        self._events: list = []
         self._error: BaseException | None = None
         self._stopped = False
         self._q: queue.Queue = queue.Queue(maxsize=MAX_BACKLOG)
@@ -162,114 +152,25 @@ class DeviceRowFeeder:
         self.devd_wait_s = None
         self.devd_reply: dict | None = None
         self.panel = None
-        self._stream = None
         if devd:
             from phylonium_tpu_torch.core.query_ship import new_run_id
 
             self.run_id = shipper.run_id if shipper is not None else new_run_id()
-            self._worker = threading.Thread(
-                target=self._drain_devd, daemon=True, name="row-feeder"
-            )
-            self._worker.start()
-            return
-        import torch
-
-        self.panel = torch.empty((rows, self.width), dtype=torch.uint8, device=device)
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                self._stream = torch.cuda.Stream(device)
-                # the panel's memory may have served earlier work on the
-                # current stream: the side stream starts after it
-                self._stream.wait_stream(torch.cuda.current_stream(device))
-                self.panel.record_stream(self._stream)
-                if rows > n:
-                    # a rank with no genomes of its own builds nothing:
-                    # built() orders the current stream after this event
-                    with torch.cuda.stream(self._stream):
-                        self.panel[n:].fill_(_PACKED_PAD)
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
-                    self._events.append(event)
+            connect, self._count = self._connect, self._count_in_server
         else:
-            self.panel[n:].fill_(_PACKED_PAD)
+            from phylonium_tpu_torch.ops.pileup_device import DevicePanel
+
+            self.panel = DevicePanel(n, ref_len, device, rows)
+            connect, self._count = (lambda: self._to_panel), self.panel.count
         self._worker = threading.Thread(
-            target=self._drain, daemon=True, name="row-feeder"
+            target=self._drain, args=(connect,), daemon=True, name="row-feeder"
         )
         self._worker.start()
 
-    def _drain(self) -> None:
-        while True:
-            item = self._q.get()
-            try:
-                if item is None:
-                    return
-                if self._error is None and not self._stopped:
-                    self._build(*item)
-            except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
-                self._error = e
-            finally:
-                self._q.task_done()
-
-    def _take(self, lo: int, rows: int):
-        """The shipper's piece of rows [lo, lo + rows), waited for in a
-        ``feed.take`` span; None without a shipper."""
-        if self._shipper is None:
-            return None
-        with profile.span("feed.take"):
-            return self._shipper.take(lo, lo + rows)
-
-    def _build(self, lo: int, queries: list, homologies: list, parent) -> None:
-        with profile.span(GROUP_RANGE, parent, {"lo": lo, "rows": len(queries),
-                                                "queued": True}):
-            import torch
-
-            from phylonium_tpu_torch.ops import pileup_device
-
-            resident = self._take(lo, len(queries))
-            if self._shipper is not None:
-                if resident is None:
-                    self.repacked += 1
-                else:
-                    self.taken += 1
-            with profile.span("feed.prep"):
-                inputs = prepare_group(
-                    queries, homologies, self.ref_len,
-                    resident=None if resident is None else resident[:3],
-                )
-            out = self.panel[lo : lo + len(queries)]
-            if self._stream is None:
-                tensors = [a if torch.is_tensor(a) else torch.from_numpy(a) for a in inputs]
-                pileup_device.build_packed_rows(
-                    tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
-                )
-                self.groups += 1
-                return
-            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-                if resident is not None:
-                    # the shipper's copy ran on its own stream
-                    self._stream.wait_event(resident.event)
-                    resident.words.record_stream(self._stream)
-                # pinned staging: the copies run on the side stream, and the
-                # pinned allocator keeps each buffer until its copy is done
-                tensors = [
-                    a if torch.is_tensor(a)
-                    else torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
-                    for a in inputs
-                ]
-                pileup_device.build_packed_rows(
-                    tensors[0], tensors[1], tuple(tensors[2:]), self.ref_len, out
-                )
-                event = torch.cuda.Event()
-                event.record(self._stream)
-            self._events.append(event)
-            self.groups += 1
-
-    def _drain_devd(self) -> None:
-        client = None
+    def _drain(self, connect) -> None:
+        """The worker: ``connect`` gives the destination of each group."""
         try:
-            from phylonium_tpu_torch.serve.client import get_client
-
-            client = get_client(str(self.device))
+            hand = connect()
         except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
             self._error = e
         while True:
@@ -277,43 +178,70 @@ class DeviceRowFeeder:
             try:
                 if item is None:
                     return
-                if client is not None and self._error is None and not self._stopped:
-                    self._send(client, *item)
+                if self._error is None and not self._stopped:
+                    self._group(hand, *item)
             except Exception as e:  # noqa: BLE001 — raised by feed()/finish()
                 self._error = e
             finally:
                 self._q.task_done()
 
-    def _send(self, client, lo: int, queries: list, homologies: list, parent) -> None:
-        """One group to the server, in a ``feed.group`` span: the shipper's
-        piece taken (``feed.take``), its records and overlay prepped
-        (``feed.prep``), and its words too unless the shipper parked them
-        there, sent (``feed.request``); its debug line as it closes."""
-        from phylonium_tpu_torch.core.query_ship import DevdGroup
-
+    def _group(self, hand, lo: int, queries: list, homologies: list, parent) -> None:
+        """One group in a ``feed.group`` span: the shipper's piece taken
+        (``feed.take``), the group prepped around it (``feed.prep``) and
+        handed on."""
         with profile.timed(GROUP_RANGE, parent, {"lo": lo, "rows": len(queries),
                                                  "queued": True}):
             resident = self._take(lo, len(queries))
-            if isinstance(resident, DevdGroup):
-                self.taken += 1
-            elif self._shipper is not None:
-                resident = None
-                self.repacked += 1
-            header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
-                      "rows": len(queries), "n": self.n, "ref_len": self.ref_len}
             with profile.timed("feed.prep") as prep:
-                if resident is None:
-                    words, *rest = prepare_group(queries, homologies, self.ref_len)
-                    arrays = [*rest, words]
-                else:
-                    header["gidx"] = resident.gidx
-                    _, *arrays = prepare_group(
-                        queries, homologies, self.ref_len,
-                        resident=(None, resident.bases, resident.seps),
-                    )
-            with profile.timed("feed.request") as request:
-                client.request(header, arrays)
+                inputs = prepare_group(
+                    queries, homologies, self.ref_len,
+                    resident=None if resident is None else (None, resident.bases,
+                                                            resident.seps),
+                )
+            hand(lo, inputs, resident, prep)
             self.groups += 1
+
+    def _take(self, lo: int, rows: int):
+        """The shipper's piece of rows [lo, lo + rows), waited for in a
+        ``feed.take`` span, and counted taken or repacked; None without a
+        shipper."""
+        if self._shipper is None:
+            return None
+        with profile.span("feed.take"):
+            resident = self._shipper.take(lo, lo + rows)
+        if resident is None:
+            self.repacked += 1
+        else:
+            self.taken += 1
+        return resident
+
+    def _to_panel(self, lo: int, inputs, resident, prep) -> None:
+        """The group built into this process's panel, from the shipper's
+        resident words where it has them."""
+        if resident is None:
+            self.panel.build(lo, inputs.words, inputs[1:])
+        else:
+            self.panel.build(lo, resident.words, inputs[1:], wait=resident.event)
+
+    def _connect(self):
+        """The device server's destination, over this process's client."""
+        from phylonium_tpu_torch.serve.client import get_client
+
+        return functools.partial(self._to_server, get_client(str(self.device)))
+
+    def _to_server(self, client, lo: int, inputs, resident, prep) -> None:
+        """The group's records and overlay, and its words unless the
+        shipper parked them in the server, sent as one ``group`` request
+        (``feed.request``); its debug line."""
+        header = {"op": "group", "run": self.run_id, "gen": self.gen, "lo": lo,
+                  "rows": len(inputs.intervals), "n": self.n, "ref_len": self.ref_len}
+        words, *arrays = inputs
+        if resident is None:
+            arrays.append(words)
+        else:
+            header["gidx"] = resident.gidx
+        with profile.timed("feed.request") as request:
+            client.request(header, arrays)
         _trace(f"group @{lo} prep {prep.seconds:.2f}s request {request.seconds:.2f}s")
 
     def feed(self, queries: list, homologies: list) -> None:
@@ -360,30 +288,22 @@ class DeviceRowFeeder:
     def built(self):
         """Wait for the worker to launch every group; return the panel,
         with the current stream ordered after its builds."""
-        if self.devd:
+        if self.panel is None:
             raise RuntimeError("the panel of a device-server feeder lies in the server")
         self._joined()
-        if self._stream is not None:
-            import torch
-
-            current = torch.cuda.current_stream(self.device)
-            for event in self._events:
-                current.wait_event(event)
-        return self.panel
+        return self.panel.ready()
 
     def finish(self) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for every group, then count the panel on its device (or in
-        the device server, which replies only after its count)."""
-        if not self.devd:
-            from phylonium_tpu_torch.ops import pair_count
-
-            with profile.span("compare.join"):
-                panel = self.built()
-            return pair_count.pair_counts_rows(panel)
-        from phylonium_tpu_torch.serve.client import get_client
-
+        """Wait for every group (``compare.join``), then count the panel on
+        its device, or in the device server, which replies only after its
+        count."""
         with profile.span("compare.join"):
             self._joined()
+        return self._count()
+
+    def _count_in_server(self) -> tuple[np.ndarray, np.ndarray]:
+        from phylonium_tpu_torch.serve.client import get_client
+
         reply, (subs, homs) = get_client(str(self.device)).request(
             {"op": "finish", "run": self.run_id, "gen": self.gen, "n": self.n}
         )
@@ -420,8 +340,8 @@ class DeviceRowFeeder:
         failing elsewhere)."""
         self._stopped = True
         self._stop()
-        if self._stream is not None:
-            self._stream.synchronize()
+        if self.panel is not None:
+            self.panel.synchronize()
 
 
 def map_pileup_streamed(

@@ -242,14 +242,6 @@ class Sequence:
     def gc_content(self) -> float:
         return gc_content(self.nucl)
 
-    def to_fasta(self, line_length: int = 70) -> str:
-        """FASTA rendering (src/sequence.cxx:48-66)."""
-        nucl = self.nucl
-        lines = [f">{self.name}"]
-        for i in range(0, len(nucl), line_length):
-            lines.append(nucl[i : i + line_length].decode("ascii"))
-        return "\n".join(lines) + "\n"
-
 
 @dataclass
 class Genome:

@@ -81,6 +81,3 @@ class ESAIndex:
             return self._native.map_query(query.as_array(), threshold)
         return None  # caller falls back to the Python chain loop
 
-
-def build_esa(subject: Sequence, backend: str | None = None) -> ESAIndex:
-    return ESAIndex(subject, backend=backend)

@@ -30,14 +30,6 @@ from phylonium_tpu_torch.config import RunConfig
 from phylonium_tpu_torch.model.evo import EvoCounts
 
 
-def _fmt(value: float, ani: bool) -> str:
-    if np.isnan(value) and np.signbit(value):
-        return "-nan"  # Python formatting drops the NaN sign; C keeps it
-    if ani:
-        return f"{value:.4g}"
-    return f"{value:.4e}"
-
-
 def format_matrix(names: list[str], dist: np.ndarray, ani: bool) -> str:
     n = len(names)
     # one C-level printf per row ("%.4e"/"%.4g" == the f-string specs

@@ -46,7 +46,6 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import math
-import os
 
 import numpy as np
 
@@ -85,12 +84,6 @@ def splitmix32_words(seed: int, count: int) -> list[int]:
         z ^= z >> 15
         out.append(z)
     return out
-
-
-def urandom_words(count: int) -> list[int]:
-    """``std::random_device`` equivalent: words straight from urandom."""
-    raw = os.urandom(4 * count)
-    return list(np.frombuffer(raw, dtype=np.uint32).astype(object))
 
 
 class SeedSeq:

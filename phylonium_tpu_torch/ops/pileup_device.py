@@ -24,27 +24,35 @@ A CUDA tensor goes to the kernel; a CPU tensor goes to the plain version.
 The route follows the output's device and nothing else: a kernel that
 fails to build or launch raises.
 
-``build_pileup_device`` builds a whole panel: it cuts the genomes into
-groups (``row_groups``) and builds them through the streamed feeder
-(core/stream.py), whose worker preps group k + 1 on the host while the
-card builds group k.
+``DevicePanel`` is the one [rows, W] panel that groups are built into
+and counted from: the streamed feeder's in process (core/stream.py), the
+device server's (serve/daemon.py) and ``build_pileup_device``'s, the
+serial path's device pileup, which cuts the genomes into groups
+(``row_groups``) and preps group k + 1 on the host while the card builds
+group k.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from phylonium_tpu_torch.core.pileup import INVALID, N_BASE
-from phylonium_tpu_torch.ops import _build
+from phylonium_tpu_torch.ops import _build, pair_count
 
 # the host half, which loads without torch; re-exported under this
 # module's names
 from phylonium_tpu_torch.ops.pileup_groups import (  # noqa: F401
+    effective_group_rows,
     prepare_group,
     row_groups,
     sort_overlay,
 )
+from phylonium_tpu_torch.ops.shapes import _PACKED_PAD, packed_width
+from phylonium_tpu_torch.ops.states import to_device
+from phylonium_tpu_torch.utils import profile
 
 # launches of the CUDA kernel, and calls of the plain version on the CPU
 # route, since the last reset (callers set them to 0)
@@ -203,6 +211,123 @@ def build_packed_rows(
     _plain(words, intervals, overlay, ref_len, out)
 
 
+class DevicePanel:
+    """An [rows, W] packed panel on ``device``, built group by group and
+    counted.
+
+    ``build`` writes one group's rows; ``ready`` returns the panel with
+    the current stream ordered after every build; ``count`` counts it.
+    Rows ``n`` and beyond hold packed INVALID and count nothing (the pod
+    feeder's padding rows, parallel/stream_mp.py).
+
+    On a card the panel is allocated on the current stream and built on
+    ``stream`` (default: a side stream of its own), which starts after
+    the current stream's work so far; each build's host arrays are copied
+    there through pinned memory (``ops.states.to_device``), in a
+    ``copy_span`` span where one is named, and an event after each build
+    orders the count. On a CPU device each build runs the plain version at
+    once. ``lock`` is held around each launch (the device server's
+    ``kernel_lock``); ``launches`` counts this panel's launches and plain
+    calls of the build and the count, under the device server's names.
+    """
+
+    def __init__(self, n: int, ref_len: int, device: torch.device,
+                 rows: int | None = None, stream=None, lock=None,
+                 copy_span: str | None = None):
+        rows = n if rows is None else rows
+        if rows < n:
+            raise ValueError(f"a panel of {rows} rows cannot hold {n} genomes")
+        self.n = n
+        self.ref_len = ref_len
+        self.device = device
+        self.rows_built = 0
+        self.launches = dict.fromkeys(("build", "build_plain", "count", "count_plain"), 0)
+        self._lock = lock or contextlib.nullcontext()
+        self._copy_span = copy_span if device.type == "cuda" else None
+        self._events: list = []
+        self.panel = torch.empty((rows, packed_width(ref_len)), dtype=torch.uint8,
+                                 device=device)
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = stream or torch.cuda.Stream(device)
+            # the panel's memory may have served earlier work on the
+            # current stream: the build stream starts after it
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+            self.panel.record_stream(self.stream)
+        if rows > n:
+            # a rank with no genomes of its own builds nothing: ready()
+            # orders the current stream after the padding
+            with self._enqueued():
+                self.panel[n:].fill_(_PACKED_PAD)
+
+    @contextlib.contextmanager
+    def _enqueued(self):
+        """Work enqueued on the build stream, with an event after it; on a
+        CPU device it runs as it is called."""
+        if self.stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self._events.append(event)
+
+    def build(self, lo: int, words, records, wait=None) -> None:
+        """Write one group's rows [lo, lo + rows) (``build_packed_rows``).
+
+        ``words`` and ``records`` (intervals, offsets, cols, vals:
+        ``GroupInputs`` after its words) are host arrays, copied here, or
+        tensors already on the device, which the build stream then holds
+        until it has read them. ``wait``: an event the build waits for
+        first (the early shipper's copy of ``words``).
+        """
+        inputs = [words, *records]
+        rows = records[0].shape[0]
+        with self._enqueued():
+            if wait is not None:
+                self.stream.wait_event(wait)
+            host = [a for a in inputs if not torch.is_tensor(a)]
+            with (profile.span(self._copy_span, attrs={"bytes": sum(a.nbytes for a in host)})
+                  if self._copy_span else contextlib.nullcontext()):
+                inputs = [a if torch.is_tensor(a) else to_device(a, self.device, self.stream)
+                          for a in inputs]
+            if self.stream is not None:
+                for t in inputs:
+                    t.record_stream(self.stream)
+            with self._lock:
+                before = KERNEL_LAUNCHES, PLAIN_CALLS
+                build_packed_rows(inputs[0], inputs[1], tuple(inputs[2:]), self.ref_len,
+                                  self.panel[lo : lo + rows])
+                self.launches["build"] += KERNEL_LAUNCHES - before[0]
+                self.launches["build_plain"] += PLAIN_CALLS - before[1]
+        self.rows_built += rows
+
+    def ready(self) -> torch.Tensor:
+        """The panel, with the current stream ordered after its builds."""
+        if self.stream is not None:
+            current = torch.cuda.current_stream(self.device)
+            for event in self._events:
+                current.wait_event(event)
+        return self.panel
+
+    def count(self) -> tuple[np.ndarray, np.ndarray]:
+        """int64 (subs, homs) of the whole panel
+        (``ops.pair_count.pair_counts_rows``), after its builds."""
+        panel = self.ready()
+        with self._lock:
+            before = pair_count.KERNEL_LAUNCHES, pair_count.PLAIN_CALLS
+            counts = pair_count.pair_counts_rows(panel)
+            self.launches["count"] += pair_count.KERNEL_LAUNCHES - before[0]
+            self.launches["count_plain"] += pair_count.PLAIN_CALLS - before[1]
+        return counts
+
+    def synchronize(self) -> None:
+        """Block until every build enqueued so far has run."""
+        if self.stream is not None:
+            self.stream.synchronize()
+
+
 def build_pileup_device(
     queries: list[np.ndarray],
     homologies: list,
@@ -215,26 +340,21 @@ def build_pileup_device(
     (phylonium_tpu/ops/pileup_device.py:287): the serial path's pileup
     under ``PHYLONIUM_TPU_DEVICE_PILEUP=1``, after complete deletion, from
     any mapper's homologies. No kernel of its own: each group of
-    ``row_groups`` (at most the streamed feeder's ``effective_group_rows``
-    genomes) goes through ``prepare_group`` and
-    ``build_packed_rows`` into one resident panel, which
-    ``ops.pair_count.pair_counts_rows`` counts as it stands. Where the JAX
-    program returned [N, L] states padded to a shape bucket, this returns
-    ``pack_rows`` of the host pileup, byte for byte. Returns once every
+    ``row_groups`` (at most ``effective_group_rows`` genomes, the streamed
+    feeder's) goes through ``prepare_group`` and ``DevicePanel.build``,
+    which ``ops.pair_count.pair_counts_rows`` counts as it stands. Where
+    the JAX program returned [N, L] states padded to a shape bucket, this
+    returns ``pack_rows`` of the host pileup, byte for byte. Each group is
+    prepped and built on the caller's thread in a ``feed.group`` span with
+    its ``feed.prep``, as the feeder records them. Returns once every
     group is built.
     """
-    from phylonium_tpu_torch.core.stream import DeviceRowFeeder, effective_group_rows
-
     n = len(queries)
-    bounds = row_groups([len(q) for q in queries], ref_len, effective_group_rows(n))
-    feeder = DeviceRowFeeder(n, ref_len, device)
-    try:
-        for lo, hi in bounds:
-            feeder.feed(queries[lo:hi], homologies[lo:hi])
-        panel = feeder.built()
-    except BaseException:
-        feeder.cancel()
-        raise
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-    return panel
+    panel = DevicePanel(n, ref_len, device)
+    for lo, hi in row_groups([len(q) for q in queries], ref_len, effective_group_rows(n)):
+        with profile.span(profile.GROUP_RANGE, attrs={"lo": lo, "rows": hi - lo}):
+            with profile.span("feed.prep"):
+                words, *records = prepare_group(queries[lo:hi], homologies[lo:hi], ref_len)
+            panel.build(lo, words, records)
+    panel.synchronize()
+    return panel.ready()

@@ -1,5 +1,6 @@
 """The host half of a group build: its row cuts and its prepared inputs.
 
+``effective_group_rows`` sizes a streamed panel's feeding groups,
 ``row_groups`` cuts a panel's genomes into device builds below the build
 kernel's int32 limit, and ``prepare_group`` turns one group into the
 arrays the pileup-build kernel reads (``GroupInputs``): the 2-bit words,
@@ -13,6 +14,7 @@ beside the kernel's wrapper.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -24,6 +26,21 @@ from phylonium_tpu_torch.ops.pileup_prep import (
     group_payload,
     prep_intervals,
 )
+
+DEFAULT_GROUP_ROWS = 128
+
+
+def effective_group_rows(n: int) -> int:
+    """Feeding-group size for an ``n``-genome panel: the 128-row default
+    capped so every panel splits into at least ~4 groups (a single group
+    would finish mapping exactly when mapping ends: nothing to overlap).
+    The 8-row floor keeps per-group fixed costs amortized.
+    ``PHYLONIUM_TPU_STREAM_GROUP`` pins an explicit size. A copy of the
+    JAX package's (phylonium_tpu/core/stream.py:41)."""
+    env = os.environ.get("PHYLONIUM_TPU_STREAM_GROUP")
+    if env:
+        return int(env)
+    return min(DEFAULT_GROUP_ROWS, max(8, -(-n // 4)))
 
 
 class GroupInputs(NamedTuple):

@@ -27,7 +27,8 @@ serves:
                                          -> {ok}: queues the build of
                                              rows [lo, lo + rows) of the run's
                                              [n, W] panel (the pileup-build
-                                             kernel, ``ops.pileup_device``);
+                                             kernel into the pass's
+                                             ``ops.pileup_device.DevicePanel``);
                                              words that come with the group
                                              are resident before the reply,
                                              the build is not
@@ -115,7 +116,7 @@ import torch
 
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu_torch.ops import _build, pair_count, pileup_device
-from phylonium_tpu_torch.ops.states import packed_width
+from phylonium_tpu_torch.ops.states import to_device
 # PROTOCOL and sock_path live in wire.py, which the CLI's client imports
 # without torch; re-exported here, where they were first defined
 from phylonium_tpu_torch.serve.wire import (  # noqa: F401
@@ -158,19 +159,16 @@ def _inject() -> str:
 
 
 class _Pass:
-    """One generation of a run: its panel, built by the run's thread."""
+    """One generation of a run: its panel, made and built by the run's
+    thread."""
 
     def __init__(self, gen, n: int, ref_len: int):
         self.gen = gen
         self.n = n
         self.ref_len = ref_len
-        self.width = packed_width(ref_len)
-        self.panel = None  # [n, W] uint8, made by the build thread
-        self.events: list = []
-        self.rows_built = 0
+        self.panel: pileup_device.DevicePanel | None = None
         self.error: str | None = None
         self.cancelled = False
-        self.launches = {"build": 0, "build_plain": 0, "count": 0, "count_plain": 0}
 
 
 class _Run:
@@ -255,25 +253,14 @@ class _State:
             "count_plain": pair_count.PLAIN_CALLS,
         }
 
-
-def _to_device(state: _State, array: np.ndarray):
-    """(tensor on the device, copy seconds or None): a host array copied
-    through pinned memory on the copy stream; the event is synchronized
-    before returning, so the words are resident."""
-    host = torch.from_numpy(array)
-    if not state.cuda:
-        return host, None
-    stream = state.stream("copy")
-    start = torch.cuda.Event(enable_timing=True)
-    done = torch.cuda.Event(enable_timing=True)
-    with profile.span("devd.copy", attrs={"bytes": array.nbytes}):
-        with torch.cuda.stream(stream):
-            pinned = host.pin_memory()
-            start.record(stream)
-            words = pinned.to(state.device, non_blocking=True)
-            done.record(stream)
-        done.synchronize()
-    return words, start.elapsed_time(done) / 1e3
+    def copy(self, array: np.ndarray):
+        """``ops.states.to_device``'s timed copy on the copy stream, in a
+        ``devd.copy`` span: (tensor, seconds, event), resident on return;
+        on the CPU (host tensor, None, None), with no span."""
+        if not self.cuda:
+            return to_device(array, self.device, timed=True)
+        with profile.span("devd.copy", attrs={"bytes": array.nbytes}):
+            return to_device(array, self.device, self.stream("copy"), timed=True)
 
 
 def _rss_mb() -> dict:
@@ -303,40 +290,17 @@ def _rss_mb() -> dict:
 def _build_one(state: _State, run: _Run, stream, item) -> None:
     header, arrays, words = item
     p: _Pass = header["pass"]
-    lo, rows = int(header["lo"]), int(header["rows"])
     if words is None:
         with state.lock:
             words = run.groups[int(header["gidx"])]
-    records = [torch.from_numpy(a) for a in arrays]
-    if not state.cuda:
-        if p.panel is None:
-            p.panel = torch.empty((p.n, p.width), dtype=torch.uint8)
-        with state.kernel_lock:
-            before = pileup_device.PLAIN_CALLS
-            pileup_device.build_packed_rows(
-                words, records[0], tuple(records[1:]), p.ref_len, p.panel[lo : lo + rows]
+    if p.panel is None:
+        # allocated on the build stream, whose pool every run's panel reuses
+        with torch.cuda.stream(stream):
+            p.panel = pileup_device.DevicePanel(
+                p.n, p.ref_len, state.device, stream=stream, lock=state.kernel_lock,
+                copy_span="devd.copy",
             )
-            p.launches["build_plain"] += pileup_device.PLAIN_CALLS - before
-        p.rows_built += rows
-        return
-    with torch.cuda.stream(stream):
-        if p.panel is None:
-            p.panel = torch.empty((p.n, p.width), dtype=torch.uint8, device=state.device)
-        # the words were copied on the copy stream, whose event was
-        # synchronized; this stream may still read them when they are freed
-        words.record_stream(stream)
-        with profile.span("devd.copy", attrs={"bytes": sum(t.nbytes for t in records)}):
-            tensors = [t.pin_memory().to(state.device, non_blocking=True) for t in records]
-        with state.kernel_lock:
-            before = pileup_device.KERNEL_LAUNCHES
-            pileup_device.build_packed_rows(
-                words, tensors[0], tuple(tensors[1:]), p.ref_len, p.panel[lo : lo + rows]
-            )
-            p.launches["build"] += pileup_device.KERNEL_LAUNCHES - before
-        event = torch.cuda.Event()
-        event.record(stream)
-    p.events.append(event)
-    p.rows_built += rows
+    p.panel.build(int(header["lo"]), words, arrays)
 
 
 def _builder(state: _State, run: _Run) -> queue.Queue:
@@ -428,7 +392,7 @@ def _handle(state: _State, header: dict, arrays: list):
         rng = np.random.default_rng(int(header.get("seed", 0)))
         data = rng.integers(0, 256, mb << 20).astype(np.uint8)
         t0 = time.perf_counter()
-        _, seconds = _to_device(state, data)
+        seconds = state.copy(data)[1]
         if seconds is None:
             seconds = time.perf_counter() - t0
         return {"ok": True, "seconds": seconds,
@@ -445,7 +409,7 @@ def _handle(state: _State, header: dict, arrays: list):
 
     if op == "qgroup":
         (packed,) = arrays
-        words, seconds = _to_device(state, packed)
+        words, seconds, _ = state.copy(packed)
         run = state.run(header["run"])
         with state.lock:
             run.groups[int(header["gidx"])] = words
@@ -469,7 +433,7 @@ def _handle(state: _State, header: dict, arrays: list):
         if header.get("gidx") is None:
             # raw codes come with the group: resident before the reply
             *arrays, packed = arrays
-            words, _ = _to_device(state, packed)
+            words = state.copy(packed)[0]
         elif int(header["gidx"]) not in run.groups:
             return {"ok": False, "error": f"run {header['run']} holds no piece "
                                           f"{header['gidx']}"}, []
@@ -494,23 +458,16 @@ def _handle(state: _State, header: dict, arrays: list):
         if p.error is not None:
             run.current = None
             return {"ok": False, "error": f"group build failed: {p.error}"}, []
-        if p.rows_built != n or p.n != n:
+        built = 0 if p.panel is None else p.panel.rows_built
+        if built != n or p.n != n:
             run.current = None
             return {"ok": False, "error": (
-                f"run {header['run']} built {p.rows_built} of {n} rows")}, []
+                f"run {header['run']} built {built} of {n} rows")}, []
         with profile.timed("devd.count") as count:
-            if state.cuda:
-                current = torch.cuda.current_stream(state.device)
-                for event in p.events:
-                    current.wait_event(event)
-            with state.kernel_lock:
-                before = (pair_count.KERNEL_LAUNCHES, pair_count.PLAIN_CALLS)
-                subs, homs = pair_count.pair_counts_rows(p.panel)
-                p.launches["count"] += pair_count.KERNEL_LAUNCHES - before[0]
-                p.launches["count_plain"] += pair_count.PLAIN_CALLS - before[1]
+            subs, homs = p.panel.count()
         # the panel is consumed; the pieces stay for a later pass
         run.current = None
-        return {"ok": True, "seconds": count.seconds, "launches": p.launches,
+        return {"ok": True, "seconds": count.seconds, "launches": p.panel.launches,
                 "memory_reserved": state.memory_reserved(), "pid": os.getpid(),
                 "device": str(state.device)}, [subs, homs]
 

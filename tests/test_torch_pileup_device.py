@@ -4,6 +4,11 @@ The same host prep (``phylonium_tpu.ops.pileup_prep``) feeds the JAX
 package's XLA program (``dispatch_build_packed``, on the CPU) and the
 port's ``build_packed_rows`` on a CPU tensor; both must equal, byte for
 byte, ``pack_states(build_pileup(...))`` at the port's aligned width.
+
+The three routes that fill a ``DevicePanel`` (the in-process feeder, the
+device server's pass, ``build_pileup_device``) give the host pileup's
+packed bytes and counts for the same groups; ``ops.states.to_device``'s
+timed copy on the CPU.
 """
 
 import numpy as np
@@ -12,12 +17,19 @@ import torch
 
 from phylonium_tpu_torch.config import ConfigError
 from phylonium_tpu.core.pileup import INVALID, build_pileup
+from phylonium_tpu.ops.match_table import pair_counts_numpy
 from phylonium_tpu.ops.pileup_device import dispatch_build_packed
 from phylonium_tpu.ops.pileup_prep import build_overlay, group_payload, prep_intervals
 from phylonium_tpu.ops.shapes import pack_states
-from phylonium_tpu_torch.ops import pileup_device
-from phylonium_tpu_torch.ops.states import packed_width
+from phylonium_tpu_torch.core.query_ship import QueryShipper
+from phylonium_tpu_torch.core.stream import DeviceRowFeeder
+from phylonium_tpu_torch.ops import pair_count, pileup_device
+from phylonium_tpu_torch.ops.shapes import _PACKED_PAD
+from phylonium_tpu_torch.ops.states import pack_rows, packed_width, to_device
+from phylonium_tpu_torch.serve import daemon
 from pileup_cases import ACGT, EDGE_CASES, panel, raw
+
+CPU = torch.device("cpu")
 
 
 def _port_rows(queries, homologies, ref_len, pad_rows=0):
@@ -201,3 +213,99 @@ def test_wrapper_refuses_bad_inputs(rng):
             words.to(torch.int64), intervals, overlay, 100,
             torch.zeros((2, 64), dtype=torch.uint8),
         )
+
+
+# -- the three routes that fill a panel ----------------------------------------
+
+# 13 genomes in groups of 5, 5 and 3
+_GROUPS = ((0, 5), (5, 10), (10, 13))
+
+
+def _by_feeder(queries, homologies, ref_len, monkeypatch):
+    """The in-process feeder with three padding rows; its first group
+    taken from the shipper's resident piece, the other two fed off the
+    shipper's boundaries and packed here."""
+    n = len(queries)
+    shipper = QueryShipper(n, CPU, group_rows=5)
+    for q in queries:
+        shipper.add(q)
+    feeder = DeviceRowFeeder(n, ref_len, CPU, rows=n + 3, shipper=shipper)
+    for lo, hi in ((0, 5), (5, 9), (9, 13)):
+        feeder.feed(queries[lo:hi], homologies[lo:hi])
+    rows = feeder.built().numpy().copy()
+    subs, homs = feeder.finish()
+    shipper.stop()
+    assert (feeder.groups, feeder.taken, feeder.repacked) == (3, 1, 2)
+    assert feeder.panel.rows_built == n
+    return rows, subs, homs
+
+
+def _by_server(queries, homologies, ref_len, monkeypatch):
+    """The device server's pass on a CPU ``_State``, driven through
+    ``daemon._handle``: the first group's words parked by ``qgroup``, the
+    other groups' words sent with them."""
+    state = daemon._State(CPU)
+    n = len(queries)
+    packed, bases, seps = group_payload(queries[0:5])
+    reply, _ = daemon._handle(state, {"op": "qgroup", "run": "r", "gidx": 0},
+                              [packed.view(np.int32)])
+    assert reply == {"ok": True, "seconds": None}
+    for lo, hi in _GROUPS:
+        header = {"op": "group", "run": "r", "gen": 1, "lo": lo, "rows": hi - lo,
+                  "n": n, "ref_len": ref_len}
+        if lo == 0:
+            header["gidx"] = 0
+            _, *arrays = pileup_device.prepare_group(
+                queries[lo:hi], homologies[lo:hi], ref_len, resident=(None, bases, seps))
+        else:
+            words, *arrays = pileup_device.prepare_group(
+                queries[lo:hi], homologies[lo:hi], ref_len)
+            arrays.append(words)
+        assert daemon._handle(state, header, arrays)[0] == {"ok": True}
+    state.runs["r"].queue.join()
+    rows = state.runs["r"].current.panel.ready().numpy().copy()
+    reply, (subs, homs) = daemon._handle(state, {"op": "finish", "run": "r", "gen": 1,
+                                                  "n": n}, [])
+    assert reply["ok"]
+    assert reply["launches"] == {"build": 0, "build_plain": 3, "count": 0, "count_plain": 1}
+    return rows, subs, homs
+
+
+def _by_pileup_device(queries, homologies, ref_len, monkeypatch):
+    """The serial path's device pileup, in groups of 5."""
+    monkeypatch.setenv("PHYLONIUM_TPU_STREAM_GROUP", "5")
+    before = pileup_device.PLAIN_CALLS
+    rows = pileup_device.build_pileup_device(queries, homologies, ref_len, CPU)
+    assert pileup_device.PLAIN_CALLS - before == 3
+    subs, homs = pair_count.pair_counts_rows(rows)
+    return rows.numpy(), subs, homs
+
+
+@pytest.mark.parametrize("build", [_by_feeder, _by_server, _by_pileup_device],
+                         ids=["feeder", "server", "build_pileup_device"])
+def test_every_panel_route_gives_the_host_panel(rng, build, monkeypatch):
+    """The same groups through each route into a ``DevicePanel``: the packed
+    host pileup byte for byte (padding rows INVALID in both nibbles) and
+    ``pair_counts_numpy``'s counts (padding rows count nothing)."""
+    queries, homologies, ref_len = panel(rng, 13, 700)
+    n = len(queries)
+    rows, subs, homs = build(queries, homologies, ref_len, monkeypatch)
+    np.testing.assert_array_equal(rows[:n], pack_rows(build_pileup(queries, homologies,
+                                                                   ref_len)))
+    assert (rows[n:] == _PACKED_PAD).all()
+    es, eh = pair_counts_numpy(build_pileup(queries, homologies, ref_len))
+    np.testing.assert_array_equal(subs[:n, :n], es)
+    np.testing.assert_array_equal(homs[:n, :n], eh)
+    assert not subs[n:].any() and not homs[n:].any()
+    assert not subs[:, n:].any() and not homs[:, n:].any()
+
+
+def test_the_timed_copy_on_the_cpu():
+    """A CPU copy is the host tensor: untimed, and timed with no seconds
+    and no event."""
+    array = np.arange(10, dtype=np.int32)
+    plain = to_device(array, CPU)
+    tensor, seconds, event = to_device(array, CPU, timed=True)
+    assert plain.device == tensor.device == CPU
+    assert tensor.numpy().tolist() == plain.numpy().tolist() == list(range(10))
+    assert seconds is None and event is None

@@ -96,15 +96,17 @@ def test_profile_covers_both_passes(files):
 
 
 @pytest.mark.parametrize(
-    "env,phases",
-    [({"PHYLONIUM_TPU_DEVICE_PILEUP": "1"}, ("index", "map", "pileup", "compare")),
-     ({"PHYLONIUM_TPU_STREAM": "force"}, ("index", "map+pileup+feed", "compare")),
-     ({"PHYLONIUM_TPU_LOWMEM": "force"}, ("index", "map+feed", "compare"))],
+    "env,phases,on_worker",
+    [({"PHYLONIUM_TPU_DEVICE_PILEUP": "1"}, ("index", "map", "pileup", "compare"), False),
+     ({"PHYLONIUM_TPU_STREAM": "force"}, ("index", "map+pileup+feed", "compare"), True),
+     ({"PHYLONIUM_TPU_LOWMEM": "force"}, ("index", "map+feed", "compare"), True)],
     ids=["device_pileup", "streamed", "lowmem"],
 )
-def test_profile_records_the_feeder_worker(files, env, phases):
+def test_profile_records_the_feeder_worker(files, env, phases, on_worker):
     """The device-pileup, streamed and low-memory paths: their phases, and
-    one range per group recorded on the feeder's worker thread."""
+    one range per group, recorded on the feeder's worker thread (streamed,
+    low-memory) or on the thread of the pileup phase, which builds the
+    device pileup's groups itself."""
     paths, tmp = files
     trace_dir = tmp / f"trace_{'_'.join(env)}"
     r, report, _ = _probe([f"--profile={trace_dir}", *paths], tmp,
@@ -115,7 +117,10 @@ def test_profile_records_the_feeder_worker(files, env, phases):
         assert names[name] == 1, names
     info = report["info"]
     assert names[GROUP_RANGE] == info["build_plain_calls"] > 0
-    assert threads[GROUP_RANGE].isdisjoint(threads["index"])
+    if on_worker:
+        assert threads[GROUP_RANGE].isdisjoint(threads["index"])
+    else:
+        assert threads[GROUP_RANGE] == threads["pileup"]
 
 
 def test_profile_carries_clock_anchors(files, tmp_path):
