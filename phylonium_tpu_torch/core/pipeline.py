@@ -1044,8 +1044,11 @@ def _process(
     # the device's one-time costs, on a thread while the host indexes
     warm = prewarm_device(n, len(subject), total_bp, cfg)
 
-    with phase(timings, "index"):
+    with phase(timings, "index") as span:
         ref = ESAIndex(subject, backend=cfg.esa_backend)
+        if ref._native is not None:
+            # threads, sais_s, buckets_s, levels: how the native build went
+            span.attrs.update(ref._native.build_stats)
     gc = gc_content(subject.nucl)
     threshold = min_anchor_length(cfg.anchor_p_value, gc, ref.size)
 

@@ -38,6 +38,8 @@ def get_lib() -> ctypes.CDLL:
         lib.phy_index_size.argtypes = [ctypes.c_void_p]
         lib.phy_index_sa.restype = ctypes.POINTER(ctypes.c_int64)
         lib.phy_index_sa.argtypes = [ctypes.c_void_p]
+        lib.phy_index_stats.restype = None
+        lib.phy_index_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)]
         lib.phy_longest_match.argtypes = [
             ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_uint8),
@@ -423,6 +425,12 @@ class NativeESA:
         n = int(self._lib.phy_index_size(self._handle))
         sa_ptr = self._lib.phy_index_sa(self._handle)
         self.SA = np.ctypeslib.as_array(sa_ptr, shape=(n,))
+        stats = (ctypes.c_double * 4)()
+        self._lib.phy_index_stats(self._handle, stats)
+        # the build's OpenMP threads, the seconds of its suffix sort and of
+        # its bucket tables, and the SA-IS levels that ran
+        self.build_stats = {"threads": int(stats[0]), "sais_s": stats[1],
+                            "buckets_s": stats[2], "levels": int(stats[3])}
 
     def __del__(self):
         try:

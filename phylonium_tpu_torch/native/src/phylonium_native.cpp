@@ -13,20 +13,33 @@
 // SPDX-License-Identifier: MIT
 
 #include <algorithm>
+#include <array>
+#include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <limits>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #if defined(__SSSE3__)
 #include <immintrin.h>
 #endif
 
+#ifdef __linux__
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+#else
+#include <thread>
+#endif
+
 #ifdef _OPENMP
 #include <omp.h>
 #else
-#include <chrono>
 static double omp_get_wtime() {
     return std::chrono::duration<double>(
                std::chrono::steady_clock::now().time_since_epoch())
@@ -42,216 +55,779 @@ using u8 = uint8_t;
 // scratch.  Sorts suffixes in plain byte-lexicographic order where a suffix
 // that is a proper prefix of a longer one sorts first — the same order
 // libdivsufsort produces for the reference.
+//
+// Parallel under OpenMP, and the same algorithm on one thread:
+// - each position's L/S type lives in the top bit of its symbol, so one
+//   load gives both T[j-1] and its type;
+// - the induce passes put every entry in the slot the serial scan would:
+//   at the text's level bucket by bucket, each wave of a bucket split
+//   across the threads by per-thread counts (induce_waves); at a
+//   recursion's, in blocks of the SA, as Grebnov's libsais does: the
+//   threads gather what each entry induces, with software prefetch, one
+//   places, the threads scatter (induce_blocks);
+// - the linear stages (classify, bucket counts, LMS placement and
+//   collection, naming, the reduced string) split into chunks with exact
+//   boundary fix-ups;
+// - a level runs in two parallel regions whose threads meet at a barrier
+//   that sleeps soon (Barrier), so a build beside other busy threads
+//   does not wait on OpenMP's spinning;
+// - names live in the free half of the SA, the reduced string at its end,
+//   and the recursion sorts into its first n1 entries: no n-sized array
+//   beyond the text and the SA.
+// The suffix array is unique, so every thread count gives the same one.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-// types[i] = 1 for S-type, 0 for L-type
-template <typename CharT>
-static void classify(const CharT *T, i64 n, std::vector<u8> &types) {
-    types.assign(n, 0);
-    types[n - 1] = 1;  // sentinel is S-type
-    for (i64 i = n - 2; i >= 0; i--) {
-        if (T[i] < T[i + 1])
-            types[i] = 1;
-        else if (T[i] > T[i + 1])
-            types[i] = 0;
+// A vector whose elements start uninitialised: the build fills every
+// entry itself, in parallel, so the serial zero-fill is wasted work.
+template <typename T>
+struct NoInit : std::allocator<T> {
+    template <typename U>
+    struct rebind {
+        using other = NoInit<U>;
+    };
+    NoInit() = default;
+    template <typename U>
+    NoInit(const NoInit<U> &) {}
+    template <typename U>
+    void construct(U *p) {
+        ::new ((void *)p) U;
+    }
+    template <typename U, typename... A>
+    void construct(U *p, A &&...a) {
+        ::new ((void *)p) U(std::forward<A>(a)...);
+    }
+};
+template <typename T>
+using Buf = std::vector<T, NoInit<T>>;
+
+#ifndef _OPENMP
+static int omp_get_thread_num() { return 0; }
+static int omp_get_max_threads() { return 1; }
+#endif
+
+// Levels shorter than this run on one thread: about here the threads'
+// start and barriers cost what they save (8 threads of a Xeon against
+// one: 1.45 against 2.13 ms at 16,384 random bases, 5.5 against 9.3 ms at
+// 65,536).
+constexpr i64 PAR_MIN_N = 1 << 14;
+
+// Symbols at most this many: per-thread counts by symbol (bucket_counts,
+// place_lms); more, a recursion's names: other means.
+constexpr i64 FEW_SYMBOLS = 65536;
+// Symbols at most this many: induce_waves, else induce_blocks (a
+// recursion's names make buckets of a few entries each).
+constexpr i64 INDUCE_WAVES_K = 1024;
+// Entries of a block of induce_blocks: its cache of 512 KiB stays in a
+// core's L2 (8 threads of a Xeon, a 4.7 Mbp genome's doubled text: 0.44
+// s a build, 0.55 s at 2^18 entries, 0.74 s at 2^20).
+constexpr i64 INDUCE_BLOCK = 1 << 16;
+
+struct SaisCtx {
+    int threads = 1;  // threads of the levels at or above PAR_MIN_N
+    int depth = 0;    // the level now running (1 = the text)
+    int levels = 0;   // the deepest level that ran
+    int threads_for(i64 n) const { return n >= PAR_MIN_N ? threads : 1; }
+};
+
+// thread t's share [*a, *b) of [lo, hi)
+inline void chunk(i64 lo, i64 hi, int t, int nt, i64 *a, i64 *b) {
+    *a = lo + (hi - lo) * t / nt;
+    *b = lo + (hi - lo) * (t + 1) / nt;
+}
+
+// A barrier for the threads of one parallel region.  A thread that comes
+// early spins for some microseconds, then sleeps on a futex.  OpenMP's
+// own barriers spin for milliseconds: where other work holds some cores
+// (a reader, a shipper or the device's warm-up beside the index), a
+// thread that lost its core waits behind the spinners at every barrier
+// (a 2.2 s build took 20 s beside two busy threads on 8 cores).
+class Barrier {
+  public:
+    explicit Barrier(int n) : n_((uint32_t)n) {}
+    void wait() {
+        if (n_ == 1) return;
+        const uint32_t g = gen_.load(std::memory_order_acquire);
+        if (arrived_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+            arrived_.store(0, std::memory_order_relaxed);
+            gen_.store(g + 1, std::memory_order_seq_cst);
+            if (sleepers_.load(std::memory_order_seq_cst) > 0) wake_all();
+            return;
+        }
+        const auto until = std::chrono::steady_clock::now() + SPIN;
+        for (int i = 1;; i++) {
+            if (gen_.load(std::memory_order_acquire) != g) return;
+#if defined(__x86_64__) || defined(__i386__)
+            __builtin_ia32_pause();
+#endif
+            if (i % 64 == 0 && std::chrono::steady_clock::now() > until) break;
+        }
+        sleepers_.fetch_add(1, std::memory_order_seq_cst);
+        while (gen_.load(std::memory_order_seq_cst) == g) sleep_while(g);
+        sleepers_.fetch_sub(1, std::memory_order_relaxed);
+    }
+
+  private:
+    static constexpr std::chrono::microseconds SPIN{50};
+    void sleep_while(uint32_t g) {
+#ifdef __linux__
+        syscall(SYS_futex, (uint32_t *)&gen_, FUTEX_WAIT_PRIVATE, g, nullptr,
+                nullptr, 0);
+#else
+        (void)g;
+        std::this_thread::yield();
+#endif
+    }
+    void wake_all() {
+#ifdef __linux__
+        syscall(SYS_futex, (uint32_t *)&gen_, FUTEX_WAKE_PRIVATE, INT32_MAX,
+                nullptr, nullptr, 0);
+#endif
+    }
+    const uint32_t n_;
+    std::atomic<uint32_t> arrived_{0}, gen_{0}, sleepers_{0};
+};
+
+// The threads of one parallel region: this one's index, their count and
+// their barrier.  Each stage below runs on every thread of a team, which
+// syncs only through the barrier, so a level of the sort opens a few
+// parallel regions, not one a stage.
+struct Team {
+    int t, nt;
+    Barrier *barrier;
+    void sync() const { barrier->wait(); }
+    void share(i64 lo, i64 hi, i64 *a, i64 *b) const {
+        chunk(lo, hi, t, nt, a, b);
+    }
+};
+
+// Runs body(team) on nt threads (all on one, where OpenMP gives fewer).
+template <typename F>
+static void in_team(int nt, F body) {
+    Barrier barrier(nt), alone(1);
+    if (nt == 1) {
+        body(Team{0, 1, &alone});
+        return;
+    }
+#pragma omp parallel num_threads(nt)
+    {
+        const int t = omp_get_thread_num();
+#ifdef _OPENMP
+        const bool whole = omp_get_num_threads() == nt;
+#else
+        const bool whole = false;
+#endif
+        if (whole)
+            body(Team{t, nt, &barrier});
+        else if (t == 0)
+            body(Team{0, 1, &alone});
+    }
+}
+
+template <typename C>
+using UC = std::make_unsigned_t<C>;
+template <typename C>
+constexpr UC<C> S_BIT = (UC<C>)((UC<C>)1 << (8 * sizeof(C) - 1));
+template <typename C>
+inline bool s_type(C t) {
+    return (UC<C>)t & S_BIT<C>;
+}
+template <typename C>
+inline i64 sym(C t) {
+    return (i64)((UC<C>)t & (UC<C>)(S_BIT<C> - 1));
+}
+// S after L; position 0 never is
+template <typename C>
+inline bool is_lms(const C *T, i64 i) {
+    return i > 0 && s_type(T[i]) && !s_type(T[i - 1]);
+}
+
+template <typename IdxT>
+struct Induced {
+    IdxT sym;  // the induced suffix's first symbol (K: none), then its slot
+    IdxT pos;  // the induced suffix
+};
+
+// What a level's stages share: the bucket sizes, per-thread counts by
+// symbol (few symbols), per-thread totals, the induce passes' bucket
+// pointers and, for many symbols, their block cache.
+template <typename IdxT>
+struct Scratch {
+    std::vector<IdxT> cnt, ptr;
+    std::vector<IdxT> part;    // [t * (K + 1) + symbol]
+    std::vector<i64> total;    // [t + 1]
+    i64 shared_at = 0;         // induce_waves: where thread 0 left the scan
+    Buf<Induced<IdxT>> cache;  // induce_blocks: a block's entries
+    Scratch(i64 n, i64 K, int nt)
+        : cnt((size_t)K), ptr((size_t)K + 1), total((size_t)nt + 1) {
+        if (K <= FEW_SYMBOLS) part.resize((size_t)nt * (K + 1));
+        if (K > INDUCE_WAVES_K)
+            cache.resize((size_t)std::min<i64>(n, INDUCE_BLOCK));
+    }
+};
+
+// Folds each position's type into its symbol's top bit (set = S).  Each
+// chunk takes its last position's type from the first place at or past
+// it where the symbol changes, read before any chunk writes.
+template <typename C>
+static void classify(C *T, i64 n, const Team &tm) {
+    i64 a, b;
+    tm.share(0, n, &a, &b);
+    bool s = true;
+    for (i64 p = b - 1; a < b && p < n - 1; p++) {
+        if (T[p] != T[p + 1]) {
+            s = T[p] < T[p + 1];
+            break;
+        }
+    }
+    tm.sync();
+    if (a < b) {
+        if (s) T[b - 1] = (C)(T[b - 1] | S_BIT<C>);
+        for (i64 i = b - 2; i >= a; i--) {
+            const i64 x = sym(T[i]), y = sym(T[i + 1]);
+            s = x < y || (x == y && s);
+            if (s) T[i] = (C)(T[i] | S_BIT<C>);
+        }
+    }
+    tm.sync();
+}
+
+// sc.cnt: the count of each symbol
+template <typename C, typename IdxT>
+static void bucket_counts(const C *T, i64 n, i64 K, const Team &tm,
+                          Scratch<IdxT> &sc) {
+    i64 a, b;
+    if (K <= FEW_SYMBOLS) {
+        // a histogram a thread, summed a range of symbols a thread
+        IdxT *h = sc.part.data() + (size_t)tm.t * (K + 1);
+        std::fill(h, h + K, 0);
+        tm.share(0, n, &a, &b);
+        for (i64 i = a; i < b; i++) h[sym(T[i])]++;
+        tm.sync();
+        tm.share(0, K, &a, &b);
+        for (i64 c = a; c < b; c++) {
+            IdxT sum = 0;
+            for (int u = 0; u < tm.nt; u++)
+                sum += sc.part[(size_t)u * (K + 1) + c];
+            sc.cnt[c] = sum;
+        }
+    } else {
+        // many symbols (a recursion's names): collisions are rare
+        tm.share(0, K, &a, &b);
+        std::fill(sc.cnt.data() + a, sc.cnt.data() + b, 0);
+        tm.sync();
+        tm.share(0, n, &a, &b);
+        for (i64 i = a; i < b; i++)
+            __atomic_fetch_add(&sc.cnt[sym(T[i])], 1, __ATOMIC_RELAXED);
+    }
+    tm.sync();
+}
+
+template <typename IdxT>
+static void bucket_starts(const std::vector<IdxT> &cnt, IdxT *out) {
+    IdxT sum = 0;
+    for (size_t c = 0; c < cnt.size(); c++) {
+        out[c] = sum;
+        sum += cnt[c];
+    }
+}
+
+template <typename IdxT>
+static void bucket_ends(const std::vector<IdxT> &cnt, IdxT *out) {
+    IdxT sum = 0;
+    for (size_t c = 0; c < cnt.size(); c++) {
+        sum += cnt[c];
+        out[c] = sum;
+    }
+}
+
+// this thread's share of p[lo, hi) = v
+template <typename T>
+inline void fill(T *p, i64 lo, i64 hi, T v, const Team &tm) {
+    i64 a, b;
+    tm.share(lo, hi, &a, &b);
+    std::fill(p + a, p + b, v);
+}
+
+// Keeps the entries of SA[lo, hi) that satisfy `keep`, in order, packed
+// to the left end (right = false) or the right end of the range; returns
+// their count.  Each chunk packs itself in place, then one thread moves
+// the packed runs, in the order that never overwrites one not yet moved.
+template <typename IdxT, typename Keep>
+static i64 compact(IdxT *SA, i64 lo, i64 hi, bool right, const Team &tm,
+                   std::vector<i64> &kept, Keep keep) {
+    i64 a, b;
+    tm.share(lo, hi, &a, &b);
+    if (!right) {
+        i64 w = a;
+        for (i64 i = a; i < b; i++)
+            if (keep(SA[i])) SA[w++] = SA[i];
+        kept[tm.t] = w - a;
+    } else {
+        i64 w = b;
+        for (i64 i = b - 1; i >= a; i--)
+            if (keep(SA[i])) SA[--w] = SA[i];
+        kept[tm.t] = b - w;
+    }
+    tm.sync();
+    i64 total = 0;
+    for (int u = 0; u < tm.nt; u++) total += kept[u];
+    if (tm.t == 0) {
+        i64 moved = 0;
+        for (int k = 0; k < tm.nt; k++) {
+            const int u = right ? tm.nt - 1 - k : k;
+            chunk(lo, hi, u, tm.nt, &a, &b);
+            moved += kept[u];
+            const i64 from = right ? b - kept[u] : a;
+            const i64 to = right ? hi - moved : lo + moved - kept[u];
+            if (from != to)
+                std::memmove(SA + to, SA + from, sizeof(IdxT) * kept[u]);
+        }
+    }
+    tm.sync();
+    return total;
+}
+
+// Places the LMS positions of T at the ends of their buckets in SA
+// (which holds EMPTY).  The order inside a bucket does not matter to the
+// LMS-substring sort.  Few symbols: each chunk counts its positions by
+// bucket and fills its slots below those of the chunks to its right (the
+// serial scan's order); many: each position takes a slot by an atomic
+// decrement, collisions being rare.
+template <typename C, typename IdxT>
+static void place_lms(const C *T, i64 n, IdxT *SA, const Team &tm,
+                      Scratch<IdxT> &sc) {
+    const i64 K = (i64)sc.cnt.size();
+    i64 a, b;
+    tm.share(1, n, &a, &b);
+    if (K > FEW_SYMBOLS) {
+        if (tm.t == 0) bucket_ends(sc.cnt, sc.ptr.data());
+        tm.sync();
+        IdxT *bp = sc.ptr.data();
+        for (i64 i = a; i < b; i++)
+            if (is_lms(T, i))
+                SA[__atomic_sub_fetch(&bp[sym(T[i])], 1, __ATOMIC_RELAXED)] =
+                    (IdxT)i;
+        tm.sync();
+        return;
+    }
+    IdxT *h = sc.part.data() + (size_t)tm.t * (K + 1);
+    std::fill(h, h + K, 0);
+    for (i64 i = a; i < b; i++)
+        if (is_lms(T, i)) h[sym(T[i])]++;
+    tm.sync();
+    if (tm.t == 0) {
+        bucket_ends(sc.cnt, sc.ptr.data());
+        for (int u = tm.nt - 1; u >= 0; u--)
+            for (i64 c = 0; c < K; c++) {
+                IdxT &k = sc.part[(size_t)u * (K + 1) + c];
+                sc.ptr[c] -= k;
+                k = sc.ptr[c];
+            }
+    }
+    tm.sync();
+    for (i64 i = a; i < b; i++)
+        if (is_lms(T, i)) SA[h[sym(T[i])]++] = (IdxT)i;
+    tm.sync();
+}
+
+// What SA entry j induces in a pass over `want_s` types: suffix j-1 when
+// its type is the pass's, else nothing (symbol K).
+template <typename C, typename IdxT>
+inline Induced<IdxT> induced_by(const C *T, IdxT j, bool want_s, IdxT K) {
+    if (j > 0) {
+        const C t = T[j - 1];
+        if (s_type(t) == want_s) return {(IdxT)sym(t), (IdxT)(j - 1)};
+    }
+    return {K, 0};
+}
+
+constexpr i64 PF = 32;  // prefetch distance of the induce passes, entries
+
+// Few symbols (the text's bytes): bucket by bucket, in the serial scan's
+// order.  The L pass reads bucket c's L-part while it still grows, so it
+// goes in waves: the entries written there so far, [i, bp[c]), induce
+// their suffixes together, and those that land in bucket c make the next
+// wave; once a wave adds none, the rest of the bucket, which the pass
+// does not write, is one range.  The S pass mirrors it from the right.
+// A long range the threads split: each counts what its share induces by
+// symbol, the counts give each thread its slots of every bucket in the
+// serial scan's order, and each places its own.  Short ones, as the last
+// waves of a bucket are, one thread scans on through until a long one
+// comes.  A pass takes two barriers a long range, a few hundred in all
+// for a text of millions, against thousands for blocks of the SA.
+template <typename C, typename IdxT>
+static void induce_waves(const C *T, i64 n, IdxT *SA, const Team &tm,
+                         Scratch<IdxT> &sc, bool s_pass) {
+    const i64 K = (i64)sc.cnt.size();
+    const int t = tm.t, nt = tm.nt;
+    const bool fwd = !s_pass;
+    const i64 long_range =
+        nt == 1 ? n + 1 : std::max<i64>(1 << 14, (i64)nt * 4096);
+    // each bucket's [start, end), and this thread's copy of the bucket
+    // pointers, one more for the entries inducing nothing
+    std::vector<IdxT> lo_of((size_t)K), hi_of((size_t)K), bp((size_t)K + 1);
+    std::vector<IdxT> slot((size_t)K + 1);
+    bucket_starts(sc.cnt, lo_of.data());
+    bucket_ends(sc.cnt, hi_of.data());
+    std::copy(s_pass ? hi_of.begin() : lo_of.begin(),
+              s_pass ? hi_of.end() : lo_of.end(), bp.begin());
+    IdxT *h = sc.part.data() + (size_t)t * (K + 1);
+    // the next entry to scan (L: the lowest left, S: past the highest)
+    i64 at = s_pass ? n : 0;
+    i64 c = s_pass ? K - 1 : 0;  // the bucket that holds it
+    // the range the scan may take from `at` at once, [a, b)
+    auto next = [&](i64 *a, i64 *b) {
+        if (fwd) {
+            while (at >= (i64)hi_of[c]) c++;
+            *a = at;
+            *b = at < (i64)bp[c] ? (i64)bp[c] : (i64)hi_of[c];
+        } else {
+            while (at <= (i64)lo_of[c]) c--;
+            *b = at;
+            *a = at > (i64)bp[c] ? (i64)bp[c] : (i64)lo_of[c];
+        }
+    };
+    while (fwd ? at < n : at > 0) {
+        i64 a, b;
+        next(&a, &b);
+        if (b - a < long_range) {
+            // short: thread 0 scans on alone to the next long range
+            if (t == 0) {
+                for (bool first = true; fwd ? at < n : at > 0; first = false) {
+                    next(&a, &b);
+                    if (!first && b - a >= long_range) break;
+                    if (fwd) {
+                        for (i64 i = a; i < b; i++) {
+                            const Induced<IdxT> x =
+                                induced_by(T, SA[i], false, (IdxT)K);
+                            if (x.sym != K) SA[bp[x.sym]++] = x.pos;
+                        }
+                    } else {
+                        for (i64 i = b - 1; i >= a; i--) {
+                            const Induced<IdxT> x =
+                                induced_by(T, SA[i], true, (IdxT)K);
+                            if (x.sym != K) SA[--bp[x.sym]] = x.pos;
+                        }
+                    }
+                    at = fwd ? b : a;
+                }
+                std::copy(bp.begin(), bp.end(), sc.ptr.begin());
+                sc.shared_at = at;
+            }
+            // (thread 0 writes them again only past a barrier that the
+            // others reach after reading them)
+            tm.sync();
+            if (t != 0) {
+                std::copy(sc.ptr.begin(), sc.ptr.end(), bp.begin());
+                at = sc.shared_at;
+            }
+            continue;
+        }
+        // long: count this thread's share by symbol (K: nothing) ...
+        i64 s0, s1;
+        tm.share(a, b, &s0, &s1);
+        std::fill(h, h + K + 1, 0);
+        for (i64 i = s0; i < s1; i++) {
+            if (i + PF < s1) {
+                const IdxT jp = SA[i + PF];
+                __builtin_prefetch(T + (jp > 0 ? jp - 1 : 0));
+            }
+            h[induced_by(T, SA[i], s_pass, (IdxT)K).sym]++;
+        }
+        tm.sync();
+        // ... take its slots: the shares before it in scan order (L: to
+        // its left, S: to its right) fill theirs first ...
+        for (i64 s = 0; s < K; s++) {
+            IdxT before = 0, total = 0;
+            for (int u = 0; u < nt; u++) {
+                const IdxT k = sc.part[(size_t)u * (K + 1) + s];
+                before += (fwd ? u < t : u > t) ? k : 0;
+                total += k;
+            }
+            slot[s] = fwd ? bp[s] + before : bp[s] - before;
+            bp[s] = fwd ? bp[s] + total : bp[s] - total;
+        }
+        // ... and place its entries, none of them inside [a, b)
+        if (fwd) {
+            for (i64 i = s0; i < s1; i++) {
+                const Induced<IdxT> x = induced_by(T, SA[i], false, (IdxT)K);
+                if (x.sym != K) SA[slot[x.sym]++] = x.pos;
+            }
+        } else {
+            for (i64 i = s1 - 1; i >= s0; i--) {
+                const Induced<IdxT> x = induced_by(T, SA[i], true, (IdxT)K);
+                if (x.sym != K) SA[--slot[x.sym]] = x.pos;
+            }
+        }
+        at = fwd ? b : a;
+        tm.sync();
+    }
+    tm.sync();
+}
+
+// Many symbols (a recursion's names): blocks of the SA.  The threads
+// gather what each entry of a block induces; one thread places the
+// entries through the bucket pointers in scan order (an entry placed
+// inside the block is gathered there and then, as the serial scan would
+// read it); the threads scatter them.  Three barriers a block.
+template <typename C, typename IdxT>
+static void induce_blocks(const C *T, i64 n, IdxT *SA, const Team &tm,
+                          Scratch<IdxT> &sc, bool s_pass) {
+    const IdxT K = (IdxT)sc.cnt.size();
+    IdxT *bp = sc.ptr.data();  // bucket pointers, one more nothing moves
+    if (tm.t == 0) {
+        if (s_pass)
+            bucket_ends(sc.cnt, bp);
         else
-            types[i] = types[i + 1];
+            bucket_starts(sc.cnt, bp);
     }
-}
-
-inline bool is_lms(const std::vector<u8> &types, i64 i) {
-    return i > 0 && types[i] && !types[i - 1];  // S after L
-}
-
-// The whole construction is templated on the index width: texts that
-// fit int32 (every genome; 2^31 chars) run with 4-byte indices, which
-// halves the memory traffic of the SA/bucket/name arrays — SA-IS is
-// memory-bound, so this is a direct wall-clock win on the index phase.
-template <typename CharT, typename IdxT>
-static void bucket_sizes(const CharT *T, i64 n, i64 K,
-                         std::vector<IdxT> &cnt) {
-    cnt.assign(K, 0);
-    for (i64 i = 0; i < n; i++) cnt[T[i]]++;
-}
-
-template <typename IdxT>
-static void bucket_starts(const std::vector<IdxT> &cnt,
-                          std::vector<IdxT> &out) {
-    out.resize(cnt.size());
-    IdxT sum = 0;
-    for (size_t c = 0; c < cnt.size(); c++) {
-        out[c] = sum;
-        sum += cnt[c];
-    }
-}
-
-template <typename IdxT>
-static void bucket_ends(const std::vector<IdxT> &cnt,
-                        std::vector<IdxT> &out) {
-    out.resize(cnt.size());
-    IdxT sum = 0;
-    for (size_t c = 0; c < cnt.size(); c++) {
-        sum += cnt[c];
-        out[c] = sum;
-    }
-}
-
-template <typename CharT, typename IdxT>
-static void induce(const CharT *T, i64 n, i64 K,
-                   const std::vector<u8> &types,
-                   const std::vector<IdxT> &cnt, std::vector<IdxT> &SA) {
-    std::vector<IdxT> ptr;
-    // induce L-types left to right from bucket heads
-    bucket_starts(cnt, ptr);
-    for (i64 i = 0; i < n; i++) {
-        IdxT j = SA[i];
-        if (j > 0 && !types[j - 1]) {
-            SA[ptr[T[j - 1]]++] = j - 1;
+    const i64 B = (i64)sc.cache.size();
+    Induced<IdxT> *c = sc.cache.data();
+    for (i64 blk = 0; blk < n; blk += B) {
+        const i64 b = s_pass ? std::max<i64>(0, n - blk - B) : blk;
+        const i64 e = s_pass ? n - blk : std::min(n, blk + B);
+        i64 g0, g1;
+        // gather
+        tm.share(b, e, &g0, &g1);
+        for (i64 i = g0; i < g1; i++) {
+            if (i + PF < g1) {
+                const IdxT jp = SA[i + PF];
+                __builtin_prefetch(T + (jp > 0 ? jp - 1 : 0));
+            }
+            c[i - b] = induced_by(T, SA[i], s_pass, K);
         }
-    }
-    // induce S-types right to left from bucket ends
-    bucket_ends(cnt, ptr);
-    for (i64 i = n - 1; i >= 0; i--) {
-        IdxT j = SA[i];
-        if (j > 0 && types[j - 1]) {
-            SA[--ptr[T[j - 1]]] = j - 1;
+        tm.sync();
+        // place, in the serial scan's order; slot -1: nothing induced
+        // (branch-free: half the entries induce nothing, at random)
+        if (tm.t == 0 && !s_pass) {
+            for (i64 k = 0; k < e - b; k++) {
+                if (k + PF < e - b) __builtin_prefetch(bp + c[k + PF].sym);
+                const IdxT s = c[k].sym;
+                const IdxT d = bp[s]++;
+                c[k].sym = d | -(IdxT)(s == K);
+                if ((d > b + k) & (d < e) & (s != K))
+                    c[d - b] = induced_by(T, c[k].pos, false, K);
+            }
+        } else if (tm.t == 0) {
+            for (i64 k = e - b - 1; k >= 0; k--) {
+                if (k >= PF) __builtin_prefetch(bp + c[k - PF].sym);
+                const IdxT s = c[k].sym;
+                const IdxT d = --bp[s];
+                c[k].sym = d | -(IdxT)(s == K);
+                if ((d >= b) & (d < b + k) & (s != K))
+                    c[d - b] = induced_by(T, c[k].pos, true, K);
+            }
         }
+        tm.sync();
+        // scatter
+        tm.share(0, e - b, &g0, &g1);
+        for (i64 k = g0; k < g1; k++)
+            if (c[k].sym >= 0) SA[c[k].sym] = c[k].pos;
+        tm.sync();
     }
 }
 
-static int g_sais_depth = 0;
-static bool sais_stage_timing() {
-    static const bool v = [] {
-        const char *e = std::getenv("PHYLONIUM_TPU_NATIVE_TIMING");
-        return e && e[0] == '2';
-    }();
-    return v;
+// The two induce passes: L left to right from the bucket heads, then S
+// right to left from the bucket ends.
+template <typename C, typename IdxT>
+static void induce(const C *T, i64 n, IdxT *SA, const Team &tm,
+                   Scratch<IdxT> &sc) {
+    for (const bool s_pass : {false, true}) {
+        if ((i64)sc.cnt.size() <= INDUCE_WAVES_K)
+            induce_waves(T, n, SA, tm, sc, s_pass);
+        else
+            induce_blocks(T, n, SA, tm, sc, s_pass);
+    }
 }
-#define SAIS_STAGE(name)                                                  \
-    do {                                                                  \
-        if (g_sais_depth <= 2 && sais_stage_timing()) {                   \
-            double now = omp_get_wtime();                                 \
-            std::fprintf(stderr, "  sais[d%d n=%lld] %-10s %.3fs\n",      \
-                         g_sais_depth, (long long)n, name, now - _t);     \
-            _t = now;                                                     \
-        }                                                                 \
-    } while (0)
 
-template <typename CharT, typename IdxT>
-static void sais_rec(const CharT *T, i64 n, i64 K, std::vector<IdxT> &SA) {
-    // T[n-1] must be a unique smallest sentinel (value 0).
+// Does the LMS substring at a differ from the one at b?  Folded symbols
+// carry their types, so equal symbols have equal types too.
+template <typename C>
+inline bool lms_differ(const C *T, i64 a, i64 b) {
+    for (i64 d = 0;; d++) {
+        if (T[a + d] != T[b + d]) return true;
+        if (d > 0 && is_lms(T, a + d)) return false;
+    }
+}
+
+// SA[0, n1) holds the LMS positions sorted by LMS substring.  Writes
+// each one's name (0-based, equal substrings alike, in that order) to
+// SA[n1 + pos / 2] and EMPTY to the rest of SA[n1, n); returns the count
+// of names.  A name starts where a substring differs from the one before
+// it: marked in the entry's top bit, counted a chunk, then summed.
+template <typename C, typename IdxT>
+static i64 name_lms(const C *T, i64 n, IdxT *SA, i64 n1, const Team &tm,
+                    std::vector<i64> &starts) {
     const IdxT EMPTY = (IdxT)-1;
-    SA.assign(n, EMPTY);
+    const IdxT MARK = std::numeric_limits<IdxT>::min();
+    i64 a, b;
+    tm.share(0, n1, &a, &b);
+    i64 prev = a > 0 ? (i64)SA[a - 1] : -1;
+    fill(SA, n1, n, EMPTY, tm);
+    tm.sync();
+    i64 count = 0;
+    for (i64 k = a; k < b; k++) {
+        const i64 pos = SA[k];
+        if (prev < 0 || lms_differ(T, prev, pos)) {
+            SA[k] = (IdxT)(pos | MARK);
+            count++;
+        }
+        prev = pos;
+    }
+    starts[tm.t + 1] = count;
+    tm.sync();
+    i64 name = -1, names = 0;
+    for (int u = 0; u <= tm.nt; u++) {
+        if (u == tm.t) name = names - 1;
+        if (u < tm.nt) names += starts[u + 1];
+    }
+    for (i64 k = a; k < b; k++) {
+        IdxT v = SA[k];
+        if (v < 0) {
+            v = (IdxT)(v & ~MARK);
+            name++;
+            SA[k] = v;
+        }
+        SA[n1 + v / 2] = (IdxT)name;
+    }
+    tm.sync();
+    return names;
+}
+
+// Writes the LMS positions of T in text order to out[0, n1).
+template <typename C, typename IdxT>
+static void lms_in_text_order(const C *T, i64 n, IdxT *out, const Team &tm,
+                              std::vector<i64> &starts) {
+    i64 a, b;
+    tm.share(1, n, &a, &b);
+    i64 count = 0;
+    for (i64 i = a; i < b; i++) count += is_lms(T, i);
+    starts[tm.t + 1] = count;
+    tm.sync();
+    i64 w = 0;
+    for (int u = 0; u < tm.t; u++) w += starts[u + 1];
+    for (i64 i = a; i < b; i++)
+        if (is_lms(T, i)) out[w++] = (IdxT)i;
+    tm.sync();
+}
+
+// Moves the sorted LMS positions in SA[0, n1) to the ends of their
+// buckets, in order, and empties the rest of SA.  The threads read each
+// one's symbol first, so the one thread that moves them reads in sequence.
+template <typename C, typename IdxT>
+static void place_sorted_lms(const C *T, i64 n, i64 n1, IdxT *SA,
+                             IdxT *syms, const Team &tm, Scratch<IdxT> &sc) {
+    const IdxT EMPTY = (IdxT)-1;
+    i64 a, b;
+    tm.share(0, n1, &a, &b);
+    for (i64 k = a; k < b; k++) syms[k] = (IdxT)sym(T[SA[k]]);
+    fill(SA, n1, n, EMPTY, tm);
+    tm.sync();
+    if (tm.t == 0) {
+        IdxT *ptr = sc.ptr.data();
+        bucket_ends(sc.cnt, ptr);
+        for (i64 k = n1 - 1; k >= 0; k--) {
+            const IdxT pos = SA[k];
+            SA[k] = EMPTY;
+            SA[--ptr[syms[k]]] = pos;
+        }
+    }
+    tm.sync();
+}
+
+// Sorts the suffixes of T[0, n) into SA[0, n).  T[n-1] must be the
+// unique smallest symbol (0); symbols are below K and leave the top bit
+// free, which this level takes for the types.  Two parallel regions a
+// level, one either side of the recursion.
+template <typename C, typename IdxT>
+static void sais_rec(C *T, i64 n, i64 K, IdxT *SA, SaisCtx &ctx) {
+    const IdxT EMPTY = (IdxT)-1;
     if (n == 1) {
         SA[0] = 0;
         return;
     }
-    g_sais_depth++;
-    double _t = sais_stage_timing() ? omp_get_wtime() : 0.0;
+    ctx.depth++;
+    ctx.levels = std::max(ctx.levels, ctx.depth);
+    const int nt = ctx.threads_for(n);
+    Scratch<IdxT> sc(n, K, nt);
+    i64 n1 = 0, names = 0;
+    in_team(nt, [&](const Team &tm) {
+        classify(T, n, tm);
+        bucket_counts(T, n, K, tm, sc);
+        // ---- step 1: sort LMS substrings by induction ----
+        fill(SA, 0, n, EMPTY, tm);
+        tm.sync();
+        place_lms(T, n, SA, tm, sc);
+        induce(T, n, SA, tm, sc);
+        // the sorted LMS positions to SA[0, n1); the sentinel n-1 is one
+        // (T[n-2] > T[n-1] makes it an S after an L) and comes first
+        const i64 m = compact(SA, 0, n, false, tm, sc.total, [T](IdxT j) {
+            return j > 0 && is_lms(T, (i64)j);
+        });
+        // ---- step 2: name LMS substrings ----
+        const i64 k = name_lms(T, n, SA, m, tm, sc.total);
+        // the reduced string (names in text order) to SA[n - n1, n)
+        compact(SA, m, n, true, tm, sc.total,
+                [EMPTY](IdxT v) { return v != EMPTY; });
+        if (tm.t == 0) n1 = m, names = k;
+    });
+    IdxT *reduced = SA + n - n1;
+    if (names < n1) sais_rec(reduced, n1, names, SA, ctx);
 
-    std::vector<u8> types;
-    classify(T, n, types);
+    Buf<IdxT> syms((size_t)n1);
+    in_team(nt, [&](const Team &tm) {
+        i64 a, b;
+        tm.share(0, n1, &a, &b);
+        if (names == n1)
+            for (i64 k = a; k < b; k++) SA[reduced[k]] = (IdxT)k;
+        // SA[0, n1): the LMS positions, sorted
+        lms_in_text_order(T, n, reduced, tm, sc.total);
+        for (i64 k = a; k < b; k++) SA[k] = reduced[SA[k]];
+        tm.sync();
+        // ---- step 3: induce the final SA from the sorted LMS positions ----
+        place_sorted_lms(T, n, n1, SA, syms.data(), tm, sc);
+        induce(T, n, SA, tm, sc);
+    });
+    ctx.depth--;
+}
 
-    std::vector<IdxT> cnt;
-    bucket_sizes(T, n, K, cnt);
-    SAIS_STAGE("classify");
-
-    // ---- step 1: sort LMS substrings by induction ----
-    {
-        std::vector<IdxT> ptr;
-        bucket_ends(cnt, ptr);
-        for (i64 i = n - 1; i > 0; i--) {
-            if (is_lms(types, i)) SA[--ptr[T[i]]] = (IdxT)i;
-        }
-        induce(T, n, K, types, cnt, SA);
-    }
-    SAIS_STAGE("step1");
-
-    // collect sorted LMS positions
-    std::vector<IdxT> lms_sorted;
-    lms_sorted.reserve(n / 2 + 1);
-    for (i64 i = 0; i < n; i++) {
-        if (SA[i] > 0 && is_lms(types, SA[i])) lms_sorted.push_back(SA[i]);
-    }
-    // the sentinel position n-1 is LMS by convention and smallest
-    // (is_lms(n-1) requires types[n-2]==L; if not, it is still first by
-    // induction since T[n-1]=0 is unique smallest and lands at SA[0])
-    i64 n_lms = (i64)lms_sorted.size();
-    SAIS_STAGE("collect");
-
-    // ---- step 2: name LMS substrings ----
-    std::vector<IdxT> name_of(n, EMPTY);
-    i64 names = 0;
-    i64 prev = -1;
-    for (i64 k = 0; k < n_lms; k++) {
-        i64 pos = lms_sorted[k];
-        bool differ = false;
-        if (prev == -1) {
-            differ = true;
-        } else {
-            // compare LMS substrings starting at prev and pos
-            for (i64 d = 0;; d++) {
-                if (T[prev + d] != T[pos + d] ||
-                    types[prev + d] != types[pos + d]) {
-                    differ = true;
-                    break;
-                }
-                if (d > 0 && (is_lms(types, prev + d) ||
-                              is_lms(types, pos + d))) {
-                    differ = !(is_lms(types, prev + d) &&
-                               is_lms(types, pos + d));
-                    break;
-                }
-            }
-        }
-        if (differ) {
-            names++;
-            prev = pos;
-        }
-        name_of[pos] = (IdxT)(names - 1);
-    }
-    SAIS_STAGE("naming");
-
-    // LMS positions in text order + their names
-    std::vector<IdxT> lms_text;
-    lms_text.reserve(n_lms);
-    for (i64 i = 0; i < n; i++) {
-        if (is_lms(types, i)) lms_text.push_back((IdxT)i);
-    }
-
-    std::vector<IdxT> lms_order(n_lms);
-    if (names < n_lms) {
-        // recurse on the reduced string of names (append handled by the
-        // sentinel name being unique smallest: the last LMS is the
-        // sentinel suffix itself and already named)
-        std::vector<IdxT> reduced((size_t)lms_text.size());
-        for (size_t k = 0; k < lms_text.size(); k++)
-            reduced[k] = name_of[lms_text[k]];
-        std::vector<IdxT> sub_sa;
-        SAIS_STAGE("reduce");
-        sais_rec(reduced.data(), (i64)reduced.size(), names, sub_sa);
-        SAIS_STAGE("recursion");
-        for (i64 k = 0; k < n_lms; k++) lms_order[k] = lms_text[sub_sa[k]];
+// The SA of s[0, n) behind its sentinel suffix: n + 1 entries, [0] = n.
+// Genomic alphabets hold no NUL and no byte above 0x7F, so a copy of the
+// bytes with 0 appended is the level-0 text; any other text is widened
+// to int32 symbols s + 1.
+template <typename IdxT>
+static Buf<IdxT> sais_text(const u8 *s, i64 n, SaisCtx &ctx) {
+    ctx.threads = n + 1 >= PAR_MIN_N ? omp_get_max_threads() : 1;
+    std::vector<u8> wide_of((size_t)ctx.threads, 0);
+    in_team(ctx.threads, [&](const Team &tm) {
+        i64 a, b;
+        tm.share(0, n, &a, &b);
+        u8 w = 0;
+        for (i64 i = a; i < b; i++) w |= (s[i] == 0) | (s[i] >= 0x80);
+        wide_of[tm.t] = w;
+    });
+    const bool wide = std::count(wide_of.begin(), wide_of.end(), 1) > 0;
+    Buf<IdxT> SA((size_t)n + 1);
+    auto copy = [&](auto *T, i64 add) {
+        in_team(ctx.threads, [&](const Team &tm) {
+            i64 a, b;
+            tm.share(0, n, &a, &b);
+            for (i64 i = a; i < b; i++) T[i] = s[i] + add;
+        });
+        T[n] = 0;
+    };
+    if (!wide) {
+        Buf<u8> T((size_t)n + 1);
+        copy(T.data(), 0);
+        sais_rec(T.data(), n + 1, 128, SA.data(), ctx);
     } else {
-        for (i64 k = 0; k < n_lms; k++)
-            lms_order[name_of[lms_text[k]]] = lms_text[k];
+        Buf<int32_t> T((size_t)n + 1);
+        copy(T.data(), 1);
+        sais_rec(T.data(), n + 1, 257, SA.data(), ctx);
     }
-
-    // ---- step 3: induce final SA from sorted LMS positions ----
-    SA.assign(n, EMPTY);
-    {
-        std::vector<IdxT> ptr;
-        bucket_ends(cnt, ptr);
-        for (i64 k = n_lms - 1; k >= 0; k--) {
-            IdxT pos = lms_order[k];
-            SA[--ptr[T[pos]]] = pos;
-        }
-        induce(T, n, K, types, cnt, SA);
-    }
-    SAIS_STAGE("step3");
-    g_sais_depth--;
+    return SA;
 }
 
 }  // namespace
@@ -259,39 +835,19 @@ static void sais_rec(const CharT *T, i64 n, i64 K, std::vector<IdxT> &SA) {
 // Build SA over a byte string (no sentinel required from the caller).
 static std::vector<i64> build_sa_bytes(const u8 *s, i64 n) {
     if (n == 0) return {};
-    // genomic alphabets never contain NUL, so byte 0 serves directly as
-    // the appended sentinel — the top level runs on u8 (4x less memory
-    // traffic through classify/induce than a widened copy)
-    bool has_nul = false;
-    for (i64 i = 0; i < n; i++) {
-        if (s[i] == 0) {
-            has_nul = true;
-            break;
-        }
-    }
-    const bool fits32 = n + 1 < (i64)INT32_MAX;
+    SaisCtx ctx;
     std::vector<i64> out((size_t)n);
-    auto run = [&](auto idx_tag) {
-        using IdxT = decltype(idx_tag);
-        std::vector<IdxT> sa_full;
-        if (!has_nul) {
-            std::vector<u8> T((size_t)n + 1);
-            std::memcpy(T.data(), s, (size_t)n);
-            T[n] = 0;
-            sais_rec(T.data(), n + 1, 256, sa_full);
-        } else {
-            std::vector<int32_t> T((size_t)n + 1);
-            for (i64 i = 0; i < n; i++) T[i] = (int32_t)s[i] + 1;
-            T[n] = 0;
-            sais_rec(T.data(), n + 1, 257, sa_full);
-        }
-        // drop the sentinel suffix (always first)
-        for (i64 i = 0; i < n; i++) out[i] = (i64)sa_full[i + 1];
+    auto drop_sentinel = [&](const auto &sa) {
+        in_team(ctx.threads, [&](const Team &tm) {
+            i64 a, b;
+            tm.share(0, n, &a, &b);
+            for (i64 i = a; i < b; i++) out[i] = (i64)sa[i + 1];
+        });
     };
-    if (fits32)
-        run(int32_t{});
+    if (n + 1 < (i64)INT32_MAX)
+        drop_sentinel(sais_text<int32_t>(s, n, ctx));
     else
-        run(i64{});
+        drop_sentinel(sais_text<i64>(s, n, ctx));
     return out;
 }
 
@@ -308,13 +864,19 @@ namespace {
 
 struct Index {
     std::vector<u8> S;
-    std::vector<i64> SA;
+    Buf<i64> SA;
     i64 n = 0;  // |S|
 
-    // int32 copy of the SA for the probe path: halves the random-access
-    // footprint of the search (the probes are memory-latency bound).
-    // Built whenever n fits; texts beyond 2^31 fall back to the i64 SA.
-    std::vector<int32_t> SA32;
+    // int32 SA for the probe path: halves the random-access footprint of
+    // the search (the probes are memory-latency bound).  SA-IS sorts into
+    // it whenever n fits; texts beyond 2^31 fall back to the i64 SA.
+    Buf<int32_t> SA32;
+
+    // how the build went: its OpenMP threads, the SA-IS levels that ran,
+    // and the seconds of the suffix sort and of the bucket tables
+    int build_threads = 1;
+    int sais_levels = 0;
+    double sais_s = 0.0, buckets_s = 0.0;
     i64 suf(i64 idx) const {
         return SA32.empty() ? SA[idx] : (i64)SA32[idx];
     }
@@ -334,8 +896,8 @@ struct Index {
     // computed inside the bucket is exact.
     int kmer = 10;   // primary width
     int kmer0 = 0;   // secondary width (0 = no secondary table)
-    std::vector<int32_t> bucket_lo;   // primary: [2c] = lo, [2c+1] = hi
-    std::vector<int32_t> bucket0_lo;  // secondary, same layout
+    Buf<int32_t> bucket_lo;   // primary: [2c] = lo, [2c+1] = hi
+    Buf<int32_t> bucket0_lo;  // secondary, same layout
     bool has_buckets = false;
 
     // leading ACGT-only bases of p packed 2-bit big-endian into *code;
@@ -472,9 +1034,39 @@ struct Index {
         return lo;
     }
 
-    void build_buckets() {
+    // SA32 (or SA past 2^31) by SA-IS, without its sentinel suffix
+    void build_sa() {
+        SaisCtx ctx;
+        if (n == 0) return;
+        // move each entry one slot left, each chunk reading the entry
+        // past its end before any chunk writes
+        auto drop_sentinel = [&](auto &sa) {
+            in_team(ctx.threads, [&](const Team &tm) {
+                i64 a, b;
+                tm.share(0, n, &a, &b);
+                const auto past = sa[b];
+                tm.sync();
+                if (a < b) {
+                    std::memmove(sa.data() + a, sa.data() + a + 1,
+                                 sizeof(sa[0]) * (b - 1 - a));
+                    sa[b - 1] = past;
+                }
+            });
+            sa.resize(n);
+        };
+        if (n + 1 < (i64)INT32_MAX) {
+            SA32 = sais_text<int32_t>(S.data(), n, ctx);
+            drop_sentinel(SA32);
+        } else {
+            SA = sais_text<i64>(S.data(), n, ctx);
+            drop_sentinel(SA);
+        }
+        build_threads = ctx.threads;
+        sais_levels = ctx.levels;
+    }
+
+    void build_buckets(int nt) {
         if (n >= (i64)INT32_MAX) return;  // probe path falls back to i64
-        SA32.assign(SA.begin(), SA.end());
 
         // smallest width with expected occupancy <= ~2.5, clamped to
         // [8, 13] (k=13 = 512 MB table, reached beyond ~168 Mbp texts)
@@ -494,18 +1086,37 @@ struct Index {
         // ~21 full-range bisection steps (~40% of tier-3 map cycles).
         kmer0 = (kmer > 4) ? std::min(kmer - 1, 10) : 0;
 
-        // Per-position code precompute in TEXT order (one backward
-        // rolling pass, sequential), so the SA walk below reads one
+        // Per-position code precompute in TEXT order (a backward rolling
+        // pass a chunk, sequential), so the SA walk below reads one
         // prefetchable u32 per entry instead of ~k random text bytes:
         // packed[p] = (min(valid_run, 15) << 28) | code(p .. p+kmer-1)
         // (code bits covering invalid bytes are garbage, but the run
         // gate means they are only read when the covered prefix is
-        // fully valid).  2*kmer <= 26 bits, run uses 4.
-        std::vector<uint32_t> packed((size_t)n);
-        {
+        // fully valid).  2*kmer <= 26 bits, run uses 4.  A chunk starts
+        // rolling 15 bytes past its end: the state there (a run capped
+        // at 15, a code of at most 15 bases) no longer depends on what
+        // lies further.
+        Buf<uint32_t> packed((size_t)n);
+        const i64 nb = (i64)1 << (2 * kmer);
+        const i64 nb0 = kmer0 ? (i64)1 << (2 * kmer0) : 0;
+        bucket_lo.resize(2 * nb);
+        bucket0_lo.resize(2 * nb0);
+        SA.resize(n);
+        struct Run {
+            i64 code = -1;
+            int32_t lo = 0, hi = 0;
+        };
+        // [t][0/1]: chunk t's first and last run of the primary, [2/3]
+        // of the secondary
+        std::vector<std::array<Run, 4>> edges(nt);
+        const uint32_t krun = (uint32_t)kmer, krun0 = (uint32_t)kmer0;
+        const int shift0 = 2 * (kmer - kmer0);
+        in_team(nt, [&](const Team &tm) {
+            i64 a, b;
+            tm.share(0, n, &a, &b);
             uint32_t code = 0;
             uint32_t run = 0;
-            for (i64 p = n - 1; p >= 0; p--) {
+            for (i64 p = std::min(n, b + 15) - 1; p >= a; p--) {
                 uint32_t c;
                 switch (S[(size_t)p]) {
                     case 'A': c = 0; break;
@@ -521,35 +1132,66 @@ struct Index {
                     if (run < 15) run++;
                     code = (c << (2 * (kmer - 1))) | (code >> 2);
                 }
-                packed[(size_t)p] = (run << 28) | code;
+                if (p < b) packed[(size_t)p] = (run << 28) | code;
             }
-        }
+            fill(bucket_lo.data(), 0, 2 * nb, (int32_t)-1, tm);
+            fill(bucket0_lo.data(), 0, 2 * nb0, (int32_t)-1, tm);
+            tm.sync();
 
-        const i64 nb = (i64)1 << (2 * kmer);
-        // walk the SA once: valid ACGT k-mer codes appear in non-decreasing
-        // order along the SA (suffixes sharing a k-prefix are contiguous);
-        // record each code's [first, last] SA range at both widths.
-        bucket_lo.assign(2 * nb, -1);
-        if (kmer0) bucket0_lo.assign(2 * ((i64)1 << (2 * kmer0)), -1);
-        const uint32_t krun = (uint32_t)kmer, krun0 = (uint32_t)kmer0;
-        for (i64 i = 0; i < n; i++) {
-            if (i + 16 < n)
-                __builtin_prefetch(packed.data() + SA32[(size_t)(i + 16)]);
-            const uint32_t pk = packed[(size_t)SA32[(size_t)i]];
-            const uint32_t run = pk >> 28;
-            const i64 code = (i64)(pk & ((1u << 28) - 1));
-            if (run >= krun) {
-                if (bucket_lo[2 * code] < 0)
-                    bucket_lo[2 * code] = (int32_t)i;
-                bucket_lo[2 * code + 1] = (int32_t)(i + 1);
+            // walk the SA once: valid ACGT k-mer codes appear in
+            // non-decreasing order along the SA (suffixes sharing a
+            // k-prefix are contiguous); record each code's [first, last]
+            // SA range at both widths.  A chunk of the SA writes the codes
+            // strictly inside its range of codes, which no other chunk
+            // holds; its first and last code may run on into its
+            // neighbours, so they merge after, by min and max.
+            std::array<Run, 4> &edge = edges[tm.t];
+            Run cur, cur0;
+            // a finished run: the chunk's first goes to its edges, any
+            // later one straight into the table
+            auto close = [&](Run &r, int first, Buf<int32_t> &tab) {
+                if (r.code < 0) return;
+                if (edge[first].code < 0) {
+                    edge[first] = r;
+                } else {
+                    tab[2 * r.code] = r.lo;
+                    tab[2 * r.code + 1] = r.hi;
+                }
+            };
+            auto extend = [&](Run &r, i64 code, i64 i, int first,
+                              Buf<int32_t> &tab) {
+                if (code == r.code) {
+                    r.hi = (int32_t)(i + 1);
+                } else {
+                    close(r, first, tab);
+                    r = {code, (int32_t)i, (int32_t)(i + 1)};
+                }
+            };
+            for (i64 i = a; i < b; i++) {
+                if (i + 16 < b)
+                    __builtin_prefetch(packed.data() + SA32[(size_t)(i + 16)]);
+                const uint32_t pk = packed[(size_t)SA32[(size_t)i]];
+                const uint32_t run = pk >> 28;
+                const i64 code = (i64)(pk & ((1u << 28) - 1));
+                if (run >= krun) extend(cur, code, i, 0, bucket_lo);
+                if (kmer0 && run >= krun0)
+                    extend(cur0, code >> shift0, i, 2, bucket0_lo);
+                // the i64 SA that phy_index_sa hands out
+                SA[(size_t)i] = SA32[(size_t)i];
             }
-            if (kmer0 && run >= krun0) {
-                i64 c0 = code >> (2 * (kmer - kmer0));
-                if (bucket0_lo[2 * c0] < 0)
-                    bucket0_lo[2 * c0] = (int32_t)i;
-                bucket0_lo[2 * c0 + 1] = (int32_t)(i + 1);
+            // the last run is an edge too (the first, if it is the only one)
+            if (edge[0].code < 0) edge[0] = cur; else edge[1] = cur;
+            if (edge[2].code < 0) edge[2] = cur0; else edge[3] = cur0;
+        });
+        for (const auto &edge : edges)
+            for (int j = 0; j < 4; j++) {
+                const Run &r = edge[j];
+                if (r.code < 0) continue;
+                int32_t *slot =
+                    (j < 2 ? bucket_lo : bucket0_lo).data() + 2 * r.code;
+                if (slot[0] < 0 || r.lo < slot[0]) slot[0] = r.lo;
+                slot[1] = std::max(slot[1], r.hi);
             }
-        }
         has_buckets = true;
     }
 
@@ -1384,19 +2026,34 @@ extern "C" {
 
 void *phy_index_build(const u8 *S, i64 m) {
     auto *idx = new Index();
-    const bool timing = std::getenv("PHYLONIUM_TPU_NATIVE_TIMING");
-    double t0 = timing ? omp_get_wtime() : 0.0;
+    const double t0 = omp_get_wtime();
     idx->S.assign(S, S + m);
     idx->n = m;
-    idx->SA = build_sa_bytes(idx->S.data(), m);
-    double t1 = timing ? omp_get_wtime() : 0.0;
-    idx->build_buckets();
-    if (timing) {
+    idx->build_sa();
+    const double t1 = omp_get_wtime();
+    if (!idx->SA32.empty()) idx->build_buckets(idx->build_threads);
+    const double t2 = omp_get_wtime();
+    idx->sais_s = t1 - t0;
+    idx->buckets_s = t2 - t1;
+    if (std::getenv("PHYLONIUM_TPU_NATIVE_TIMING")) {
         std::fprintf(stderr,
-                     "native index: sais=%.3fs buckets=%.3fs (n=%lld)\n",
-                     t1 - t0, omp_get_wtime() - t1, (long long)m);
+                     "native index: sais=%.3fs buckets=%.3fs (n=%lld, "
+                     "%d threads, %d levels)\n",
+                     idx->sais_s, idx->buckets_s, (long long)m,
+                     idx->build_threads, idx->sais_levels);
     }
     return idx;
+}
+
+// The build's account: out[0] its OpenMP threads, out[1] the seconds of
+// the suffix sort, out[2] those of the bucket tables and the i64 SA,
+// out[3] the SA-IS levels that ran (1: no recursion).
+void phy_index_stats(void *h, double *out) {
+    const Index &idx = *static_cast<Index *>(h);
+    out[0] = idx.build_threads;
+    out[1] = idx.sais_s;
+    out[2] = idx.buckets_s;
+    out[3] = idx.sais_levels;
 }
 
 void phy_index_free(void *h) { delete static_cast<Index *>(h); }

@@ -327,10 +327,10 @@ def second_pass():
 
 @contextlib.contextmanager
 def phase(timings: dict, name: str):
-    """Time the body into ``timings[name]`` (seconds), the duration of its
-    span."""
+    """Time the body, which gets the span, into ``timings[name]``
+    (seconds), the duration of its span."""
     with timed(name) as s:
-        yield
+        yield s
     timings[name] = s.seconds
 
 

@@ -147,6 +147,40 @@ def case_suffix_array(tmp_path):
         assert np.array_equal(np.asarray(ours.S), np.asarray(theirs.S))
 
 
+def _index_at_threads(nt: int):
+    """At ``nt`` native threads, the port's index over a doubled 1.2 Mbp
+    text, whose SA and bucket tables are built in parallel, against the
+    JAX package's serial build: the same SA, the same answers of the
+    bucket-seeded probe, the same homologies mapped."""
+    base, mutant, _, draft = _genomes(seed=21, n=4, length=600_000)
+    theirs = j_esa.ESAIndex(j_seq.Sequence("G0", base), backend="native")
+    t_native.set_threads(nt)
+    try:
+        ours = t_esa.ESAIndex(t_seq.Sequence("G0", base), backend="native")
+    finally:
+        t_native.set_threads(t_native.num_procs())
+    assert ours._native.build_stats["threads"] == nt
+    assert np.array_equal(np.asarray(ours.SA), np.asarray(theirs.SA))
+    rng = np.random.default_rng(nt)
+    q = np.frombuffer(mutant, np.uint8)
+    for at, length in zip(rng.integers(0, len(q) - 200, 3000), rng.integers(1, 200, 3000)):
+        window = q[at : at + length]
+        assert ours._native.probe_unique(window) == theirs._native.probe_unique(window)
+    threshold = t_stats.min_anchor_length(0.025, t_seq.gc_content(base), ours.size)
+    for genome in (mutant, draft):
+        mapped = ours.map_query(t_seq.Sequence("q", genome), threshold)
+        assert mapped and _tuples(mapped) == _tuples(
+            theirs.map_query(j_seq.Sequence("q", genome), threshold))
+
+
+def case_index_one_thread(tmp_path):
+    _index_at_threads(1)
+
+
+def case_index_eight_threads(tmp_path):
+    _index_at_threads(8)
+
+
 def case_map_batch_native(tmp_path):
     (jref, jthr, _, jhv, jraw), (tref, tthr, _, thv, traw) = _both_mapped()
     assert tthr == jthr

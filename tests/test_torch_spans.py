@@ -10,6 +10,8 @@ One CPU daemon for the module (``python -m phylonium_tpu_torch.serve
   its parent (a server span inside the client's request span on the
   shared clock, within 1 ms), and a queued one (the feeder's groups, the
   server's builds) starts after its parent and ends inside the run;
+- the ``index`` span carries the native build's ``threads``, ``sais_s``,
+  ``buckets_s`` and ``levels``;
 - each ``timings`` entry is its span's duration, ``devd_count_s`` the
   server's ``devd.count`` and ``devd.finish_wait_s`` the client's
   ``devd.finish``; the phases and ``process.rest`` tile ``process``;
@@ -211,6 +213,18 @@ def test_timings_are_their_spans(traced):
     (join,) = _named(traced, "compare.join")
     assert _seconds(join) + _seconds(finish) <= timings["compare"] + ROUNDING_S
     assert _seconds(count) <= _seconds(finish)
+
+
+def test_index_span_carries_the_build(traced):
+    """The ``index`` span carries the native build's account: its OpenMP
+    threads (one below the parallel cutoff, as this 3 kbp reference is),
+    the seconds of the suffix sort and of the bucket tables, inside the
+    span, and the SA-IS levels that ran."""
+    (index,) = _named(traced, "index")
+    attrs = index["attrs"]
+    assert attrs["threads"] == 1 and attrs["levels"] >= 1
+    assert 0 < attrs["sais_s"] and 0 < attrs["buckets_s"]
+    assert attrs["sais_s"] + attrs["buckets_s"] <= _seconds(index)
 
 
 def test_phases_and_the_rest_tile_process(traced):
